@@ -56,10 +56,21 @@
 //                 iteration's (1) as well.
 // One extra launch (gl_prep) makes the first a_syn. A persistent launch for
 // the whole loop is later work.
+//
+// The design was tuned at one utterance (M = 344). A serving grid stacks 32
+// blocks of 128 rows (M = 4096, of which the pad rows of shorter samples
+// carry zero magnitude and stay exactly zero: the projection multiplies by
+// mag). There the scratch no longer fits L2 (syn 42 MB, a_syn 19 MB, a_ana
+// 10 MB, f32 state 57 MB), so gl_band streams its partial sums from device
+// memory and takes about a third of an iteration (per-launch spans on an
+// H100 80GB HBM3 at 700 W: syn 73 us, ana 86 us, band 60 us; 190 us per
+// iteration against 25 us at M = 344). Folding the band into a GEMM's
+// prologue or epilogue, so that syn never leaves the SM, is later work too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 typedef __nv_bfloat16 bf16;
@@ -71,6 +82,7 @@ constexpr int BN = 128;       // columns of a block tile, B tile rows (wgmma n12
 constexpr int BK = 64;        // contraction depth of one stage (4 x k16)
 constexpr int STAGES = 4;     // pipeline depth
 constexpr int THREADS = 128;  // one warpgroup
+constexpr int EW = 256;       // threads of an elementwise block
 constexpr int SYN_SPLIT = 2;  // parts of the syn product's K (2F)
 constexpr int A_ELEMS = BM * BK;
 constexpr int B_ELEMS = BN * BK;
@@ -444,13 +456,23 @@ extern "C" int gl_syn_split() { return SYN_SPLIT; }
 // M rounded up to a multiple of this.
 extern "C" int gl_tile_rows() { return BM; }
 
+// The largest row count M that gl_run takes at these widths. gl_prep and
+// gl_band give each thread one element (or 8 columns) of the state and
+// compute its flat index blockIdx.x * blockDim.x + threadIdx.x in an int;
+// every other offset in this file is a size_t. So M * max(F, S/8), rounded
+// up to whole blocks, must stay below 2^31.
+extern "C" int gl_max_rows(int F, int S) {
+  const int per_row = F > S / 8 ? F : S / 8;
+  return per_row > 0 ? (INT_MAX - EW) / per_row : 0;
+}
+
 // Tiles the plain basis cs (S, 2F) bf16 into syn_b and ana_b (S * 2F bf16
 // each), the layout gl_run reads, on `stream`. Returns cudaGetLastError().
 extern "C" int gl_tile_bases(const bf16* cs, bf16* syn_b, bf16* ana_b, int F, int S,
                              void* stream_ptr) {
   if (S % BN != 0 || S % BK != 0 || F % (BN / 2) != 0 || (2 * F) % BK != 0)
     return (int)cudaErrorInvalidValue;
-  const int ew = 256;
+  const int ew = EW;
   gl_tile_bases_kernel<<<(S * 2 * F + ew - 1) / ew, ew, 0,
                          reinterpret_cast<cudaStream_t>(stream_ptr)>>>(cs, syn_b, ana_b, F, S);
   return (int)cudaGetLastError();
@@ -461,7 +483,8 @@ extern "C" int gl_tile_bases(const bf16* cs, bf16* syn_b, bf16* ana_b, int F, in
 // caller-allocated: a_syn (ceil(M/BM)*BM, 2F) and a_ana (ceil(M/BM)*BM, S)
 // bf16, tiled, ZEROED (rows M.. are never written and must read as 0); syn
 // (SYN_SPLIT, M, S) f32. Shapes must satisfy S % 128 == 0, F % 64 == 0,
-// 2F/SYN_SPLIT % 64 == 0 and hop % 4 == 0 (checked here). Returns
+// 2F/SYN_SPLIT % 64 == 0, hop % 4 == 0 and M <= gl_max_rows(F, S) (checked
+// here). Returns
 // cudaGetLastError() after the launches, so a refused launch is reported;
 // nothing is synchronised.
 extern "C" int gl_run(const float* mag, const float* re0, const float* im0,
@@ -469,9 +492,9 @@ extern "C" int gl_run(const float* mag, const float* re0, const float* im0,
                       const float* g, float* re, float* im, bf16* a_syn,
                       float* syn, bf16* a_ana, int M, int F, int S, int t_pad,
                       int hop, int n_taps, int n_iter, void* stream_ptr) {
-  if (M <= 0 || S % BN != 0 || S % BK != 0 || F % (BN / 2) != 0 ||
-      (2 * F) % (SYN_SPLIT * BK) != 0 || hop % 4 != 0 || t_pad <= n_taps ||
-      n_iter < 1) {
+  if (M <= 0 || M > gl_max_rows(F, S) || S % BN != 0 || S % BK != 0 ||
+      F % (BN / 2) != 0 || (2 * F) % (SYN_SPLIT * BK) != 0 || hop % 4 != 0 ||
+      t_pad <= n_taps || n_iter < 1) {
     return (int)cudaErrorInvalidValue;
   }
   // both GEMMs take more than the default 48 KB of dynamic shared memory
@@ -482,7 +505,7 @@ extern "C" int gl_run(const float* mag, const float* re0, const float* im0,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const int ew = 256;
+  const int ew = EW;
   gl_prep<<<(M * F + ew - 1) / ew, ew, 0, stream>>>(re0, im0, ck, a_syn, M, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

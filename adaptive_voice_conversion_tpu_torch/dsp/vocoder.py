@@ -17,7 +17,14 @@ import torch
 from ..core.config import SignalConfig
 from .audio import deemphasis_torch, trim_silence
 from .mel import mel_to_linear_matrix
-from .stft import istft, stft
+from .stft import (
+    istft,
+    istft_env_inv_masked,
+    istft_masked,
+    stft,
+    stft_masked,
+    stft_mirror_index,
+)
 
 DEFAULT_SIGNAL = SignalConfig()
 
@@ -74,6 +81,102 @@ def griffin_lim(
     if method != "exact":
         raise ValueError(f"method={method!r}: expected 'exact' or 'fused'")
     return _griffin_lim_core(mag, cfg.n_fft, cfg.hop_length, cfg.win_length, n_iter)
+
+
+def _masked_projection(mag: torch.Tensor, frame_lengths: torch.Tensor, cfg: SignalConfig):
+    """What both ragged Griffin-Lim cores share: the magnitude zeroed at
+    frames >= L_b, one exact iteration X -> X', and the final synthesis,
+    with the per-sample envelope and mirror index built once."""
+    n_fft, hop, win = cfg.n_fft, cfg.hop_length, cfg.win_length
+    n_frames = mag.shape[-1]
+    fmask = torch.arange(n_frames, device=mag.device)[None, None, :] < frame_lengths[:, None, None]
+    mag = mag * fmask.to(mag.dtype)
+    env_inv = istft_env_inv_masked(frame_lengths, n_frames, n_fft, hop, win)
+    mirror = stft_mirror_index(frame_lengths, hop * (n_frames - 1), n_fft, hop)
+
+    def synthesize(X: torch.Tensor) -> torch.Tensor:
+        return istft_masked(X, env_inv, n_fft, hop, win)
+
+    def exact_iteration(X: torch.Tensor) -> torch.Tensor:
+        est = stft_masked(synthesize(X), frame_lengths, n_fft, hop, win, mirror)
+        phase = est / torch.clamp(est.abs(), min=1e-8)
+        return (mag * phase).to(torch.complex64)
+
+    return mag, exact_iteration, synthesize
+
+
+def _griffin_lim_core_masked(
+    mag: torch.Tensor, frame_lengths: torch.Tensor, cfg: SignalConfig, n_iter: int
+) -> torch.Tensor:
+    """Ragged-batch Griffin-Lim: mag (B, n_freq, T) with per-sample valid
+    frame counts L_b. For every sample the first hop*(L_b - 1) output
+    samples are ``griffin_lim`` on mag[b, :, :L_b] alone.
+
+    Three ingredients (dsp/stft.py): zero magnitude at frames >= L_b (their
+    phase does not matter: the magnitude replacement zeroes them again in
+    every iteration), a masked window-sum envelope in the ISTFT, and
+    per-sample reflect boundaries for the STFT's edge frames.
+    """
+    mag, exact_iteration, synthesize = _masked_projection(mag, frame_lengths, cfg)
+    X = mag.to(torch.complex64)
+    for _ in range(n_iter):
+        X = exact_iteration(X)
+    return synthesize(X).float()
+
+
+def _griffin_lim_core_masked_fast(
+    mag: torch.Tensor, frame_lengths: torch.Tensor, cfg: SignalConfig,
+    n_iter: int, warm_start: int, polish_iters: int,
+) -> torch.Tensor:
+    """Ragged-batch fast Griffin-Lim: masked exact warm start, the fused
+    kernel for the bulk of the iterations, masked exact polish.
+
+    The kernel runs on the zero-masked padded batch as it is, with no
+    reflect extension of the magnitude: zero-magnitude pad frames stay zero
+    through its magnitude projection, so each sample's end sees the
+    kernel's interior-band approximation, and the masked exact iterations
+    before and after it (per-sample reflection, masked envelope) supply
+    the true edge behaviour.
+    """
+    from ..kernels.griffin_lim import griffin_lim_phases_segmented
+
+    mag, exact_iteration, synthesize = _masked_projection(mag, frame_lengths, cfg)
+    warm = min(warm_start, n_iter)
+    polish = min(polish_iters, n_iter - warm)
+    X = mag.to(torch.complex64)
+    for _ in range(warm):
+        X = exact_iteration(X)
+    kern_iters = n_iter - warm - polish
+    if kern_iters > 0:
+        X = griffin_lim_phases_segmented(mag, cfg, n_iter=kern_iters, init_spec=X)
+    for _ in range(polish):
+        X = exact_iteration(X)
+    return synthesize(X).float()
+
+
+def griffin_lim_masked(
+    mag: torch.Tensor,
+    frame_lengths,
+    cfg: SignalConfig = DEFAULT_SIGNAL,
+    n_iter: Optional[int] = None,
+    method: str = "exact",
+) -> torch.Tensor:
+    """Batched ragged Griffin-Lim: mag (B, n_freq, T), frame_lengths (B,)
+    -> wav (B, hop*(T-1)); sample b is valid up to hop*(L_b - 1).
+
+    ``method="exact"``: per-sample-exact iterations only (equal to
+    ``griffin_lim`` on each sample, see ``_griffin_lim_core_masked``).
+    ``method="fused"``: the fused kernel between 4 masked exact warm-start
+    iterations and 2 of polish (``_griffin_lim_core_masked_fast``), the
+    fast serving mode for mixed-length grids.
+    """
+    n_iter = cfg.n_iter if n_iter is None else n_iter
+    lens = torch.as_tensor(frame_lengths, dtype=torch.int64, device=mag.device)
+    if method == "fused":
+        return _griffin_lim_core_masked_fast(mag, lens, cfg, n_iter, 4, 2)
+    if method != "exact":
+        raise ValueError(f"method={method!r}: expected 'exact' or 'fused'")
+    return _griffin_lim_core_masked(mag, lens, cfg, n_iter)
 
 
 def melspectrogram2wav(

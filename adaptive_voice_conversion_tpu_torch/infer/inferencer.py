@@ -1,25 +1,32 @@
-"""One-shot voice conversion of a single utterance.
+"""One-shot voice conversion: a single utterance, or a batch of pairs.
 
 Source wav -> content mu; target wav (one utterance of an unseen speaker)
 -> speaker embedding; the AdaIN decoder recombines them; Griffin-Lim
 vocodes. Featurization is host numpy; the model and the vocoder run on the
 Inferencer's device (``cuda`` unless the caller asks for the CPU).
+
+``convert_grid`` and ``convert_pairs`` serve many pairs in one padded
+batch through the length-masked model (models/masked.py) and one ragged
+Griffin-Lim call (dsp/vocoder.py), so mixed-length inputs convert as
+one-at-a-time conversion would convert them.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import TrainConfig
 from ..core.device import DeviceLike, resolve_device, set_precision
-from ..dsp.audio import save_wav
+from ..dsp.audio import deemphasis_torch, save_wav, trim_silence
 from ..dsp.features import get_spectrograms
-from ..dsp.vocoder import melspectrogram2wav
+from ..dsp.vocoder import griffin_lim, griffin_lim_masked, mel_to_mag, melspectrogram2wav
 from ..models.ae import AE
+from ..models.masked import ae_inference_masked
 
 
 def utt_make_frames(x: np.ndarray, frame_size: int) -> np.ndarray:
@@ -109,3 +116,156 @@ class Inferencer:
         )
         save_wav(output_path, wav, self.config.signal.sr)
         return wav
+
+    # -- batched serving --------------------------------------------------
+
+    def _padded_shapes(self, src_lens, tar_lens, len_bucket: int) -> Tuple[int, int]:
+        """Padded source and target frame counts. Sources pad to a multiple
+        of the content encoder's downsample product, so the strided chain
+        keeps whole physical shapes (the masked ops handle each sample's
+        valid length). ``len_bucket`` > 1 rounds both up to bucket multiples
+        as well, so that a deployment sees few distinct shapes; the masked
+        path is exact under any padding, so results do not depend on it."""
+        sub = int(np.prod(self.config.model.content_encoder.subsample))
+        bk = max(len_bucket, 1)
+        bs = sub * bk // math.gcd(sub, bk)
+        ts = -(-int(max(src_lens)) // bs) * bs
+        tt = -(-int(max(tar_lens)) // bk) * bk
+        return ts, tt
+
+    def _stack(self, mels: Sequence[np.ndarray], t: int) -> torch.Tensor:
+        """Mels (L_i, n_mels) zero-padded to t frames, stacked, on the device."""
+        out = np.zeros((len(mels), t, mels[0].shape[1]), np.float32)
+        for i, m in enumerate(mels):
+            out[i, : m.shape[0]] = m
+        return torch.from_numpy(out).to(self.device)
+
+    def _pair_batch(self, src_mels, tar_mels, len_bucket: int):
+        """Padded (src, src_lens, tar, tar_lens) tensors on the device for a
+        list of sources and a list of targets: ``convert_pairs`` takes them
+        index by index, ``_grid_batch`` crosses them."""
+        src_lens = [int(m.shape[0]) for m in src_mels]
+        tar_lens = [int(m.shape[0]) for m in tar_mels]
+        ts, tt = self._padded_shapes(src_lens, tar_lens, len_bucket)
+        lens = lambda l: torch.tensor(l, dtype=torch.int64, device=self.device)
+        return self._stack(src_mels, ts), lens(src_lens), self._stack(tar_mels, tt), lens(tar_lens)
+
+    def _grid_batch(self, src_mels, tar_mels, len_bucket: int = 1):
+        """The ns x nt cross product, row-major (i * nt + j), as
+        ``_pair_batch`` tensors. It is made on the device, so only the
+        ns + nt unique mels cross the bus."""
+        ns, nt = len(src_mels), len(tar_mels)
+        src, sl, tar, tl = self._pair_batch(src_mels, tar_mels, len_bucket)
+        return (
+            src.repeat_interleave(nt, dim=0), sl.repeat_interleave(nt),
+            tar.repeat(ns, 1, 1), tl.repeat(ns),
+        )
+
+    def _require_frame_size_1(self, name: str) -> None:
+        if self.config.data_loader.frame_size != 1:
+            raise NotImplementedError(
+                f"{name} assumes frame_size=1 (the shipped config); reshape "
+                "inputs with utt_make_frames for other frame sizes"
+            )
+
+    def convert_grid(
+        self,
+        src_mels: Sequence[np.ndarray],
+        tar_mels: Sequence[np.ndarray],
+        gl_iters: Optional[int] = None,
+        gl_method: Optional[str] = None,
+        trim: bool = True,
+        return_mels: bool = False,
+        len_bucket: int = 1,
+    ):
+        """All pairs (src_i, tar_j) in one padded batch through the model
+        and one batched Griffin-Lim call. Returns the wavs row-major
+        (i * n_t + j), or ``(wavs, mels)`` with the denormalized converted
+        mels when ``return_mels`` (``inference_one_utterance``'s second
+        return).
+
+        Exact for mixed-length inputs: the model runs the length-masked
+        forward passes and the vocoder the ragged Griffin-Lim, so every pair
+        computes what ``inference_one_utterance`` computes at its true
+        lengths. ``gl_method="fused"`` swaps the vocoder's bulk iterations
+        for the fused kernel, between masked exact warm-start and polish
+        iterations: still length-aware. A uniform grid (every source at the
+        padded length, every target equal) has no padding, so it runs the
+        unmasked model and the plain Griffin-Lim.
+        """
+        self._require_frame_size_1("convert_grid")
+        src_b, sl_b, tar_b, tl_b = self._grid_batch(src_mels, tar_mels, len_bucket)
+        uniform = bool((sl_b == src_b.shape[1]).all() and (tl_b == tar_b.shape[1]).all())
+        return self._serve_batch(
+            src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, uniform, trim, return_mels
+        )
+
+    def convert_pairs(
+        self,
+        pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+        gl_iters: Optional[int] = None,
+        gl_method: Optional[str] = None,
+        trim: bool = True,
+        return_mels: bool = False,
+        len_bucket: int = 1,
+    ):
+        """Convert an explicit list of (source_mel, target_mel) pairs in one
+        padded batch: the serving shape when requests are not a cross
+        product. The same guarantees and options as ``convert_grid``."""
+        self._require_frame_size_1("convert_pairs")
+        src_mels = [np.asarray(s, np.float32) for s, _ in pairs]
+        tar_mels = [np.asarray(t, np.float32) for _, t in pairs]
+        return self._serve_batch(
+            *self._pair_batch(src_mels, tar_mels, len_bucket), gl_method, gl_iters,
+            False, trim, return_mels,
+        )
+
+    def _vocode(
+        self, dec: torch.Tensor, dec_lens: torch.Tensor, gl_method: str,
+        gl_iters: Optional[int], uniform: bool,
+    ) -> torch.Tensor:
+        """The whole chain after the model, on the vocoder's device:
+        denormalize, mel -> linear magnitude, Griffin-Lim, de-preemphasis.
+        dec (B, T, n_mels) normalized -> wavs (B, hop*(T-1))."""
+        cfg = self.config.signal
+        dev = self.vocoder_device
+        as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        mel = dec.to(dev) * as_dev(self.attr["std"]) + as_dev(self.attr["mean"])
+        mag = mel_to_mag(mel, cfg)
+        if uniform:
+            wav = griffin_lim(mag, cfg, n_iter=gl_iters, method=gl_method)
+        else:
+            wav = griffin_lim_masked(
+                mag, dec_lens.to(dev), cfg, n_iter=gl_iters, method=gl_method
+            )
+        return deemphasis_torch(wav, cfg.preemphasis)
+
+    def _serve_batch(
+        self, src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, uniform, trim,
+        return_mels,
+    ):
+        """Shared by convert_grid and convert_pairs: the (masked) model, the
+        vocode chain, one copy of the finished wavs to the host, and the
+        crop / trim / mels epilogue there. A pair's wav is cropped to its
+        true source frame count, ``sl_b[k]``."""
+        gl_method = self.gl_method if gl_method is None else gl_method
+        hop = self.config.signal.hop_length
+        crop_lens = sl_b.tolist()
+        n = len(crop_lens)
+        with torch.no_grad():
+            if uniform:
+                dec = self.model.inference(src_b, tar_b)
+                dec_lens = torch.full((n,), dec.shape[1], dtype=torch.int64, device=dec.device)
+            else:
+                dec, dec_lens = ae_inference_masked(self.model, src_b, sl_b, tar_b, tl_b)
+            wavs = self._vocode(dec, dec_lens, gl_method, gl_iters, uniform).cpu().numpy()
+        out: List[np.ndarray] = []
+        for k in range(n):
+            w = wavs[k][: hop * (crop_lens[k] - 1)]
+            if trim:
+                w, _ = trim_silence(w, top_db=60.0)
+            out.append(w.astype(np.float32))
+        if not return_mels:
+            return out
+        dec_host, dl = dec.cpu().numpy(), dec_lens.cpu().numpy()
+        return out, [self.denormalize(dec_host[k, : dl[k]]) for k in range(n)]

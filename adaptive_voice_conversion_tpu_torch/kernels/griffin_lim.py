@@ -134,10 +134,15 @@ def _device_consts(
     )
 
 
+def _padded_frames(t: int) -> int:
+    """Frame rows of one block: t rounded up to a multiple of 8."""
+    return _round_up(max(t, 8), 8)
+
+
 def _to_frames(mag: torch.Tensor, init_spec: Optional[torch.Tensor], f_pad: int):
     """mag (B, n_freq, T) -> (mag, re0, im0) each (B*t_pad, f_pad) f32."""
     b, n_freq, t = mag.shape
-    t_pad = _round_up(max(t, 8), 8)
+    t_pad = _padded_frames(t)
     pads = (0, f_pad - n_freq, 0, t_pad - t)
     m = F.pad(mag.float().transpose(-1, -2), pads)
     if init_spec is None:
@@ -214,6 +219,8 @@ def _gl_lib() -> ctypes.CDLL:
     for scalar in (lib.gl_syn_split, lib.gl_tile_rows):
         scalar.argtypes = []
         scalar.restype = ctypes.c_int
+    lib.gl_max_rows.argtypes = [ctypes.c_int] * 2
+    lib.gl_max_rows.restype = ctypes.c_int
     return lib
 
 
@@ -245,8 +252,10 @@ def griffin_lim_phases(
     """The fused kernel: mag (B, n_freq, T) f32 -> complex (B, n_freq, T).
 
     The B utterances (or segments) are stacked along the rows of one launch
-    sequence. A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel or raises."""
+    sequence. Frames of zero magnitude (the pad frames of a ragged batch)
+    come out exactly zero. A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel or raises, also on more rows than the
+    kernel's 32-bit element indices address."""
     if mag.device.type == "cpu":
         return griffin_lim_phases_plain(mag, cfg, n_iter, init_spec)
     if mag.device.type != "cuda":
@@ -259,11 +268,18 @@ def griffin_lim_phases(
         raise ValueError("init_spec must match mag's shape and device")
     c = _device_consts(cfg.n_fft, cfg.win_length, cfg.hop_length, mag.device)
     b, n_freq, t = mag.shape
+    lib = _gl_lib()
+    rows = b * _padded_frames(t)
+    max_rows = lib.gl_max_rows(c.f_pad, c.s_pad)
+    if rows > max_rows:
+        raise ValueError(
+            f"griffin_lim_phases: {b} blocks of {_padded_frames(t)} frame rows = "
+            f"{rows} rows, more than the {max_rows} the kernel's 32-bit element "
+            "indices address; split the batch"
+        )
     m, re0, im0, t_pad = _to_frames(mag, init_spec, c.f_pad)
     if n_iter == 0:
         return _from_frames(re0, im0, b, t_pad, n_freq, t)
-    rows = m.shape[0]
-    lib = _gl_lib()
     syn_b, ana_b = _kernel_bases(cfg.n_fft, cfg.win_length, cfg.hop_length, mag.device)
     with torch.cuda.device(mag.device):
         re = torch.empty_like(m)
