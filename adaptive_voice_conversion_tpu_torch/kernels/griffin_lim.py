@@ -26,7 +26,11 @@ utterance) and frequencies are columns (padded to f_pad = 1152).
   every length.
 
 What bounds the kernel on the H100, and its design: see the note at the
-top of csrc/griffin_lim.cu.
+top of csrc/griffin_lim.cu. Three pure functions model what the CUDA file
+does, so that the CPU tests reach it and the card can be held to it:
+``operand_offset`` (where an element sits in a bf16 operand image),
+``launch_plan`` (the tiles and the K split ``gl_run`` takes at a row
+count) and ``iteration_bytes`` (what one iteration moves under a plan).
 """
 
 from __future__ import annotations
@@ -209,6 +213,120 @@ def griffin_lim_phases_plain(
     return _from_frames(re, im, b, t_pad, n_freq, t)
 
 
+# The constants of csrc/griffin_lim.cu that the models below repeat
+# (gl_constants and gl_tile_rows export the file's own; chip_smoke.py holds
+# the two together on the card).
+IMAGE_K = 64  # columns of one k tile of an operand image: 128 bytes of bf16
+IMAGE_ROW_PAD = 256  # an A image holds its rows rounded up to a multiple of this
+NUM_SMS = 132  # the launch plan is tuned for the H100 SXM
+# the plan's cost model, in 128-byte operand rows: a block's start, the
+# epilogues per tile column of a 128-row tile, a part of K per 128 rows
+PLAN_START, PLAN_EPI_SYN, PLAN_EPI_ANA, PLAN_SPLIT = 500, 8, 16, 80
+
+
+def operand_offset(row: int, k: int, rows: int) -> int:
+    """Element offset of (row, k) in a bf16 operand image of ``rows`` rows.
+
+    The image is stored k tile by k tile (IMAGE_K columns each); a k tile is
+    a (rows, 64) row-major matrix of 128-byte rows, and inside a row the
+    16-byte piece ``(k % 64) // 8`` sits at piece index ``piece ^ (row % 8)``:
+    wgmma's 128-byte swizzle, so that any 8-aligned run of rows of one k tile
+    is one contiguous copy into shared memory."""
+    piece = ((k >> 3) & 7) ^ (row & 7)
+    return ((k // IMAGE_K) * rows + row) * IMAGE_K + (piece << 3) + (k & 7)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How gl_run launches the two products at a row count: the block tile
+    (rows x columns) of each, and the parts of the syn product's K (partial
+    sums in device memory, added by the band pass)."""
+
+    syn_bm: int
+    syn_bn: int
+    syn_split: int
+    ana_bm: int
+    ana_bn: int
+
+
+_SYN_TILES = ((128, 128), (128, 160), (128, 256), (256, 160))
+_ANA_TILES = ((64, 128), (128, 128), (128, 192), (128, 256), (256, 144))
+_SPLITS = (1, 2, 3, 4, 6)
+
+
+def _gemm_cost(rows, n_cols, k_tiles, bm, bn, split, epi) -> int:
+    """The plan's cost model, in units of one 128-byte operand row pulled
+    into an SM (what bounds a block's k-step): rounds of blocks on the SMs x
+    (a block's k-steps x the rows of a stage + its epilogue + its start),
+    plus what the band pays for reading partial sums."""
+    blocks = -(-rows // bm) * (n_cols // bn) * split
+    rounds = -(-blocks // NUM_SMS)
+    cost = rounds * ((k_tiles // split) * (bm + bn) + epi * bn * bm // 128 + PLAN_START)
+    return cost + (PLAN_SPLIT * -(-rows // 128) * split if split > 1 else 0)
+
+
+def launch_plan(rows: int, f_pad: int = 1152, s_pad: int = 1280) -> LaunchPlan:
+    """The plan gl_run takes at ``rows`` rows (the same search, in the same
+    order, as make_plan in csrc/griffin_lim.cu): the cheapest tile of each
+    product, K of the syn product split only where the tiles alone cannot
+    fill the SMs."""
+    best, syn = None, None
+    for bm, bn in _SYN_TILES:
+        if s_pad % bn:
+            continue
+        for split in _SPLITS:
+            blocks = -(-rows // bm) * (s_pad // bn)
+            if (2 * f_pad // IMAGE_K) % split:
+                continue
+            if split > 1 and (blocks >= NUM_SMS or blocks * split > NUM_SMS):
+                continue
+            cost = _gemm_cost(rows, s_pad, 2 * f_pad // IMAGE_K, bm, bn, split, PLAN_EPI_SYN)
+            if best is None or cost < best:
+                best, syn = cost, (bm, bn, split)
+    best, ana = None, None
+    for bm, bn in _ANA_TILES:
+        if f_pad % (bn // 2):
+            continue
+        cost = _gemm_cost(rows, 2 * f_pad, s_pad // IMAGE_K, bm, bn, 1, PLAN_EPI_ANA)
+        if best is None or cost < best:
+            best, ana = cost, (bm, bn)
+    if syn is None or ana is None:
+        raise ValueError(f"no block tile fits f_pad {f_pad}, s_pad {s_pad}")
+    return LaunchPlan(*syn, *ana)
+
+
+def scratch_bytes(rows: int, plan: LaunchPlan, f_pad: int = 1152, s_pad: int = 1280) -> dict:
+    """Device memory the wrapper allocates beside the inputs for one call."""
+    a_rows = _round_up(rows, IMAGE_ROW_PAD)
+    return {
+        "re_im": 2 * rows * f_pad * 4,
+        "a_syn": a_rows * 2 * f_pad * 2,
+        "a_ana": a_rows * s_pad * 2,
+        "syn": plan.syn_split * rows * s_pad * 4,
+    }
+
+
+def iteration_bytes(
+    rows: int, plan: LaunchPlan, f_pad: int = 1152, s_pad: int = 1280, last: bool = False
+) -> dict:
+    """Device-memory bytes one iteration writes and reads under ``plan``,
+    each array counted once per launch that touches it (what a launch reads
+    again comes from L2). ``last``: the iteration that stores the f32 state."""
+    syn = plan.syn_split * rows * s_pad * 4
+    a_syn, a_ana = rows * 2 * f_pad * 2, rows * s_pad * 2
+    basis = s_pad * 2 * f_pad * 2
+    out = {
+        "syn_gemm_read": a_syn + basis,
+        "syn_gemm_write": syn,
+        "band_read": syn + s_pad * 4,
+        "band_write": a_ana,
+        "ana_gemm_read": a_ana + basis + rows * f_pad * 4 + f_pad * 4,
+        "ana_gemm_write": a_syn + (2 * rows * f_pad * 4 if last else 0),
+    }
+    out["total"] = sum(out.values())
+    return out
+
+
 @lru_cache(maxsize=None)
 def _gl_lib() -> ctypes.CDLL:
     lib = load_library("griffin_lim")
@@ -216,19 +334,48 @@ def _gl_lib() -> ctypes.CDLL:
     lib.gl_run.restype = ctypes.c_int
     lib.gl_tile_bases.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.gl_tile_bases.restype = ctypes.c_int
-    for scalar in (lib.gl_syn_split, lib.gl_tile_rows):
-        scalar.argtypes = []
-        scalar.restype = ctypes.c_int
+    lib.gl_tile_rows.argtypes = []
+    lib.gl_tile_rows.restype = ctypes.c_int
     lib.gl_max_rows.argtypes = [ctypes.c_int] * 2
     lib.gl_max_rows.restype = ctypes.c_int
+    lib.gl_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gl_plan.restype = ctypes.c_int
+    lib.gl_set_launch_overlap.argtypes = [ctypes.c_int]
+    lib.gl_set_launch_overlap.restype = None
+    for query in (lib.gl_last_plan, lib.gl_constants):
+        query.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        query.restype = None
     return lib
+
+
+def kernel_plan(rows: int, f_pad: int, s_pad: int) -> LaunchPlan:
+    """The plan csrc/griffin_lim.cu itself makes at ``rows`` rows."""
+    out = (ctypes.c_int * 5)()
+    if _gl_lib().gl_plan(rows, f_pad, s_pad, out) != 0:
+        raise ValueError(f"griffin_lim kernel: no block tile fits f_pad {f_pad}, s_pad {s_pad}")
+    return LaunchPlan(*out)
+
+
+def set_launch_overlap(on: bool) -> None:
+    """For measurements: False makes the loop's launches plain launches, each
+    starting when the one before has ended, so that a profiler's span of a
+    launch is its own time. The default (True) is programmatic dependent
+    launch, under which the spans overlap."""
+    _gl_lib().gl_set_launch_overlap(int(on))
+
+
+def kernel_last_plan() -> LaunchPlan:
+    """The plan the kernel's last launch sequence took."""
+    out = (ctypes.c_int * 5)()
+    _gl_lib().gl_last_plan(out)
+    return LaunchPlan(*out)
 
 
 @lru_cache(maxsize=4)
 def _kernel_bases(n_fft: int, win_length: int, hop_length: int, device: torch.device):
     """The kernel's two B operands, made once per device from the plain
-    basis cs by gl_tile_bases, in the layout that only csrc/griffin_lim.cu
-    knows."""
+    basis cs by gl_tile_bases: the operand images (``operand_offset``) of cs
+    (rows = samples) and of cs^T (rows = the 2*f_pad columns of cs)."""
     c = _device_consts(n_fft, win_length, hop_length, device)
     syn_b, ana_b = torch.empty_like(c.cs), torch.empty_like(c.cs)
     with torch.cuda.device(device):
@@ -284,11 +431,12 @@ def griffin_lim_phases(
     with torch.cuda.device(mag.device):
         re = torch.empty_like(m)
         im = torch.empty_like(m)
-        # tiled bf16 operands, whole row tiles; rows past `rows` must read as zero
+        # bf16 operand images, whole row tiles; rows past `rows` must read as zero
         a_rows = _round_up(rows, lib.gl_tile_rows())
         a_syn = torch.zeros(a_rows * 2 * c.f_pad, dtype=torch.bfloat16, device=mag.device)
         a_ana = torch.zeros(a_rows * c.s_pad, dtype=torch.bfloat16, device=mag.device)
-        syn = torch.empty(lib.gl_syn_split(), rows, c.s_pad, dtype=torch.float32, device=mag.device)
+        split = kernel_plan(rows, c.f_pad, c.s_pad).syn_split
+        syn = torch.empty(split, rows, c.s_pad, dtype=torch.float32, device=mag.device)
         stream = torch.cuda.current_stream(mag.device).cuda_stream
         rc = lib.gl_run(
             m.data_ptr(), re0.data_ptr(), im0.data_ptr(), syn_b.data_ptr(),

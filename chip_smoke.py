@@ -8,12 +8,16 @@ Run from the root of a checkout:
 Phases, in order; any failure exits non-zero and prints no result line:
   1. the card: require CUDA, print nvidia-smi's name and power limit, turn
      TF32 off for the parity phases;
-  2. the build: compile csrc/griffin_lim.cu with nvcc for sm_90a;
-  3. the fused Griffin-Lim kernel against its plain PyTorch version on the
-     card, at the main path's shape (one utterance, t_pad 344), at T=500
-     (two 384-frame segments stacked along the rows) and at the serving
-     shape (32 ragged blocks of t_pad 128 = 4096 rows, zero past each
-     block's length);
+  2. the build: compile csrc/griffin_lim.cu with nvcc for sm_90a, and hold
+     the constants it exports against the Python model's;
+  3. the fused Griffin-Lim kernel: its two basis images against the Python
+     model of the operand layout, bit for bit; then against its plain
+     PyTorch version on the card, at the main path's shape (one utterance,
+     t_pad 344), at T=500 (two 384-frame segments stacked along the rows),
+     at the serving shape (32 ragged blocks of t_pad 128 = 4096 rows, zero
+     past each block's length) and at the tiles' edges (27 ragged blocks of
+     t_pad 152 = 4104 rows, n_iter 1, 2 and 3); after every launch the plan
+     the kernel took against the Python model of the launch plan;
   4. the main path at the full examples/config.yaml width: seeded wavs,
      attr.pkl and a reference-format .ckpt of seeded weights, then the
      one-shot conversion CLI with --gl_method fused in a subprocess, with
@@ -35,6 +39,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import pickle
 import subprocess
@@ -147,9 +152,21 @@ def phase_card() -> str:
 def phase_build() -> None:
     built = build("griffin_lim")
     log(f"[build] {built.path.name} in {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    worst = [ln.strip() for ln in built.log.splitlines() if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    regs = sorted({int(ln.split("Used ")[1].split(" registers")[0]) for ln in built.log.splitlines() if "Used " in ln and " registers" in ln})
+    log(f"[build] ptxas: {sum('Used ' in ln for ln in built.log.splitlines())} kernels, "
+        f"registers per thread {regs}, kernels that spill: {len(worst)}")
+    for line in worst:
+        log(f"[build] {line}")
+    # the constants the Python models repeat are the file's own
+    out = (ctypes.c_int * 6)()
+    gl._gl_lib().gl_constants(out)
+    mine = [gl.IMAGE_K, gl.NUM_SMS, gl.PLAN_START, gl.PLAN_EPI_SYN, gl.PLAN_EPI_ANA, gl.PLAN_SPLIT]
+    check(list(out) == mine, f"gl_constants {list(out)} != the Python model's {mine}")
+    check(gl._gl_lib().gl_tile_rows() == gl.IMAGE_ROW_PAD,
+          f"gl_tile_rows {gl._gl_lib().gl_tile_rows()} != IMAGE_ROW_PAD {gl.IMAGE_ROW_PAD}")
+    log(f"[build] exported constants agree with kernels/griffin_lim.py: {mine}, "
+        f"image row padding {gl.IMAGE_ROW_PAD}")
 
 
 def synthetic_spec(n_frames: int, seed: int) -> np.ndarray:
@@ -211,8 +228,82 @@ def _block_scs(mag_np: np.ndarray, wav: np.ndarray, lengths) -> list:
     ]
 
 
+# The tiles' edges: 27 blocks of 150 frames (t_pad 152, no multiple of the
+# 64-row wgmma tiles) = 4104 rows, one 128-row tile past 4096, valid lengths
+# ragged from 150 down
+EDGE_BLOCK_FRAMES = tuple(150 - 3 * (k % 9) for k in range(27))
+
+
+def check_layout(dev: torch.device) -> None:
+    """gl_tile_bases' two images against the Python model of the operand
+    layout, bit for bit."""
+    c = gl._device_consts(SIG.n_fft, SIG.win_length, SIG.hop_length, dev)
+    syn_b, ana_b = gl._kernel_bases(SIG.n_fft, SIG.win_length, SIG.hop_length, dev)
+    cs = c.cs.cpu().view(torch.int16).numpy()
+    for name, image, plain in (("syn_b", syn_b, cs), ("ana_b", ana_b, cs.T)):
+        rows, k = plain.shape
+        off = gl.operand_offset(np.arange(rows)[:, None], np.arange(k)[None, :], rows)
+        want = np.empty(rows * k, np.int16)
+        want[off.reshape(-1)] = plain.reshape(-1)
+        got = image.cpu().view(torch.int16).numpy().reshape(-1)
+        check(np.array_equal(got, want), f"{name} is not the image operand_offset describes: "
+              f"{int((got != want).sum())} of {got.size} elements differ")
+    log(f"[kernel] layout: gl_tile_bases' images of cs ({c.s_pad} rows) and cs^T "
+        f"({2 * c.f_pad} rows) equal the Python model operand_offset bit for bit")
+
+
+def check_plan(rows: int, what: str) -> "gl.LaunchPlan":
+    """The plan the kernel's last launch took against the Python model's."""
+    took, want = gl.kernel_last_plan(), gl.launch_plan(rows)
+    check(took == want, f"{what}: gl_run took {took} at {rows} rows, launch_plan says {want}")
+    return took
+
+
+def phase_kernel_edges(dev: torch.device) -> None:
+    """Case d: n_iter 1, 2 and 3 (first = last; the operand buffers reused
+    once and twice) at a row count one tile past 4096, t_pad no multiple of
+    64, ragged zero-magnitude pad frames."""
+    t = max(EDGE_BLOCK_FRAMES)
+    spec_b = np.stack([
+        np.pad(synthetic_spec(n, SEED + 50 + k), ((0, 0), (0, t - n)))
+        for k, n in enumerate(EDGE_BLOCK_FRAMES)
+    ])
+    mag = torch.from_numpy(np.abs(spec_b).astype(np.float32)).to(dev)
+    init = torch.from_numpy(spec_b).to(dev)
+    mag_max = float(mag.max())
+    lengths = torch.tensor(EDGE_BLOCK_FRAMES, device=dev)
+    pad = torch.arange(t, device=dev)[None, :] >= lengths[:, None]
+    rows = len(EDGE_BLOCK_FRAMES) * (-(-t // 8) * 8)
+    worst = {}
+    for n_iter in (1, 2, 3):
+        k = gl.griffin_lim_phases(mag, SIG, n_iter=n_iter, init_spec=init)
+        plan = check_plan(rows, f"case d n_iter={n_iter}")
+        p = gl.griffin_lim_phases_plain(mag, SIG, n_iter=n_iter, init_spec=init)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        fro = float(torch.linalg.norm(k - p) / torch.linalg.norm(p))
+        check(torch.isfinite(k.real).all().item() and torch.isfinite(k.imag).all().item(),
+              f"case d n_iter={n_iter}: kernel output not finite")
+        check(err <= TOL_ONE_ITER * n_iter * mag_max,
+              f"case d n_iter={n_iter}: max|diff| {err} > {TOL_ONE_ITER} * {n_iter} * {mag_max}")
+        check(fro <= TOL_ONE_ITER_FRO,
+              f"case d n_iter={n_iter}: relative Frobenius {fro} > {TOL_ONE_ITER_FRO}")
+        pad_max = float((k.abs() * pad[:, None, :]).max())
+        check(pad_max == 0.0, f"case d n_iter={n_iter}: padded rows reach {pad_max}, not 0")
+        worst[n_iter] = (err / mag_max, fro)
+    log(f"[kernel] case d: {len(EDGE_BLOCK_FRAMES)} ragged blocks of t_pad {-(-t // 8) * 8} = "
+        f"{rows} rows ({sum(EDGE_BLOCK_FRAMES)} valid), plan {plan}; seeded with the signal's "
+        f"own phases, n_iter 1 / 2 / 3 max|diff| of max|mag| "
+        + " / ".join(f"{worst[n][0]:.3e}" for n in (1, 2, 3))
+        + f" (tol {TOL_ONE_ITER} x n_iter: each projection amplifies the difference the one "
+        "before left at bins where |X2| nearly vanishes), "
+        "relative Frobenius " + " / ".join(f"{worst[n][1]:.3e}" for n in (1, 2, 3))
+        + f" (tol {TOL_ONE_ITER_FRO}); padded rows exactly zero")
+
+
 def phase_kernel() -> dict:
     dev = torch.device("cuda")
+    check_layout(dev)
     out = {}
     cases = (
         ("a", synthetic_spec(MAIN_FRAMES, SEED)[None], None),
@@ -225,6 +316,7 @@ def phase_kernel() -> dict:
         mag_max = float(mag.max())
         before = gl.griffin_lim_phases.launches
         k1 = gl.griffin_lim_phases(mag, SIG, n_iter=1, init_spec=init)
+        plan = check_plan(mag.shape[0] * (-(-mag.shape[2] // 8) * 8), f"case {case}")
         p1 = gl.griffin_lim_phases_plain(mag, SIG, n_iter=1, init_spec=init)
         torch.cuda.synchronize()
         err1 = float((k1 - p1).abs().max())
@@ -261,12 +353,13 @@ def phase_kernel() -> dict:
         ragged = "" if lengths is None else (
             f", {sum(lengths)} valid rows, padded rows exactly zero")
         log(f"[kernel] case {case}: T={mag.shape[2]}, {mag.shape[0]} block(s) of "
-            f"t_pad {t_pad} = {mag.shape[0] * t_pad} rows{ragged}; n_iter=1 max|diff| {err1:.3e} "
+            f"t_pad {t_pad} = {mag.shape[0] * t_pad} rows{ragged}, plan {plan}; n_iter=1 max|diff| {err1:.3e} "
             f"= {err1 / mag_max:.3e} of max|mag| (tol {TOL_ONE_ITER}), relative "
             f"Frobenius {fro1:.3e} (tol {TOL_ONE_ITER_FRO}); "
             f"n_iter={N_KERNEL_ITERS} worst block SC kernel {sck:.5f} plain {scp:.5f}, "
             f"largest per-block gap {gap:.5f} (tol {TOL_SC})")
         out[case] = {"max_abs_err": err1, "fro": fro1, "sc_kernel": sck, "sc_plain": scp}
+    phase_kernel_edges(dev)
     log(f"[kernel] tolerances: n_iter=1 seeded with the signal's own phases, "
         f"max|diff| <= {TOL_ONE_ITER}*max|mag| and relative Frobenius <= "
         f"{TOL_ONE_ITER_FRO} (only f32 summation order, the projection's last "
@@ -385,18 +478,42 @@ def time_kernel(card: str, label: str, mag: torch.Tensor, lengths, reps: int) ->
     # would time the host
     library_ms = sum(us for us, _ in device_us_by_kernel(library).values()) / 1e3
     split = device_us_by_kernel(lambda: gl.griffin_lim_phases(mag, SIG, n_iter=n))
+    plan = check_plan(rows, label)
+    launches = 0
     for name, (us, count) in sorted(split.items(), key=lambda kv: -kv[1][0]):
         if "gl_" in name:
-            short = name.split("::")[-1].split("(")[0]
+            launches += count
+            short = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
             log(f"[time] {label} kernel launch {short}: {us / count:.2f} us x {count} "
                 f"(torch.profiler; the loop's launches overlap, each span "
                 f"includes its wait on the one before) ({card})")
         elif "memset" in name.lower() or "fill" in name.lower():
             log(f"[time] {label} wrapper zero-fill of scratch and seed state: "
                 f"{us / count:.2f} us x {count} (torch.profiler) ({card})")
+    # the same launches one after the other: each span is the launch's own time
+    gl.set_launch_overlap(False)
+    try:
+        serial_ms = cuda_ms(lambda: gl.griffin_lim_phases(mag, SIG, n_iter=n), reps=reps)
+        serial = device_us_by_kernel(lambda: gl.griffin_lim_phases(mag, SIG, n_iter=n))
+    finally:
+        gl.set_launch_overlap(True)
+    own = {name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]: us / count
+           for name, (us, count) in serial.items() if "gl_" in name and count > 1}
+    log(f"[time] {label} launches serialised (no programmatic dependent launch): "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(own.items(), key=lambda kv: -kv[1]))
+        + f"; sum {sum(own.values()):.2f} us per iteration, {serial_ms:.4f} ms per call "
+        f"against {ms:.4f} overlapped (torch.profiler spans, CUDA-event ms) ({card})")
+    # achieved rates from the plan's own counts: the padded products the
+    # kernel executes, and the device-memory bytes of its iterations
+    moved = (n - 1) * gl.iteration_bytes(rows, plan, c.f_pad, c.s_pad)["total"] + \
+        gl.iteration_bytes(rows, plan, c.f_pad, c.s_pad, last=True)["total"]
     log(f"[time] {label} kernel griffin_lim_phases rows {rows} ({bound['frames']} valid) "
-        f"x {n} iters: {ms:.4f} ms per call, {ms / n * 1e3:.2f} us per iteration, "
-        f"{3 * n + 1} CUDA launches in one wrapper launch ({card})")
+        f"x {n} iters, plan {plan}: {ms:.4f} ms per call, {ms / n * 1e3:.2f} us per iteration, "
+        f"{launches} CUDA launches in one wrapper launch (torch.profiler's count); "
+        f"{bound['executed_gflop_per_iter'] * n / ms:.1f} TFLOP/s bf16 executed, "
+        f"{moved / ms / 1e6:.1f} GB/s of device memory if every array of an iteration "
+        f"({gl.iteration_bytes(rows, plan, c.f_pad, c.s_pad)['total'] / 1e6:.1f} MB) moved once "
+        f"({card})")
     log(f"[time] {label} plain version {plain_ms:.4f} ms; library yardstick (2 bf16 "
         f"torch.matmul per iteration x {n} at {rows} rows, device time by "
         f"torch.profiler) {library_ms:.4f} ms ({card})")
@@ -421,11 +538,19 @@ def phase_kernel_times(card: str) -> dict:
     mag = torch.from_numpy(np.abs(spec)[None].astype(np.float32)).to(dev)
     main = time_kernel(card, "main path:", mag, [MAIN_FRAMES], reps=10)
     grid_mag = torch.from_numpy(np.abs(ragged_grid_spec()).astype(np.float32)).to(dev)
+    serving = time_kernel(card, "serving grid:", grid_mag, list(GRID_BLOCK_FRAMES), reps=5)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    serving = time_kernel(card, "serving grid:", grid_mag, list(GRID_BLOCK_FRAMES), reps=5)
-    log(f"[time] serving grid: peak device memory above the inputs while timing "
-        f"{(torch.cuda.max_memory_allocated() - base) / 1e6:.1f} MB ({card})")
+    gl.griffin_lim_phases(grid_mag, SIG, n_iter=N_KERNEL_ITERS)
+    torch.cuda.synchronize()
+    rows = serving["rows"]
+    scratch = gl.scratch_bytes(rows, gl.launch_plan(rows))
+    log(f"[time] serving grid: peak device memory above the inputs during one wrapper call "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e6:.1f} MB, of which the kernel's "
+        f"state and scratch {sum(scratch.values()) / 1e6:.1f} MB by scratch_bytes "
+        f"(syn partial sums {scratch['syn'] / 1e6:.1f} MB; the rest is the wrapper's padded "
+        f"frames and complex result) ({card})")
     return {"main": main, "serving": serving}
 
 

@@ -154,3 +154,104 @@ def test_fused_batched_rows_identical():
     mag = np.abs(spec_frames(40)).astype(np.float32)
     w = griffin_lim(torch.from_numpy(np.stack([mag, mag])), CFG, n_iter=6, method="fused")
     torch.testing.assert_close(w[0], w[1], rtol=0, atol=1e-6)
+
+
+# --- the Python models of the CUDA file's operand layout and launch plan ---
+
+F_PAD, S_PAD = 1152, 1280
+# the design before the redesign, by its code: two (M, S) f32 partial sums
+# at every row count, and re/im f32 stored by every iteration
+OLD_SYN_SCRATCH = lambda rows: 2 * rows * S_PAD * 4
+OLD_ITERATION_BYTES = lambda rows: (
+    2 * (2 * rows * S_PAD * 4)  # partial sums written, then read by the band
+    + 2 * rows * F_PAD * 4  # re and im f32 stored
+    + 2 * (rows * 2 * F_PAD * 2 + rows * S_PAD * 2)  # a_syn and a_ana written and read
+    + rows * F_PAD * 4  # mag read
+    + 2 * S_PAD * 2 * F_PAD * 2  # the two basis operands read
+)
+
+
+@pytest.mark.parametrize("rows", [344, 384, 4096])
+@pytest.mark.parametrize("k_cols", [S_PAD, 2 * F_PAD])
+def test_operand_offset_is_a_bijection_that_keeps_16_byte_pieces(rows, k_cols):
+    """An A operand image at a row count of the one-shot path (344), of a
+    full segment (384) and of the serving grid (4096), for both products'
+    K: every element has its own place inside the image, and the 8 elements
+    of a 16-byte piece stay adjacent, in order, on a 16-byte boundary."""
+    pad = -(-rows // tgl.IMAGE_ROW_PAD) * tgl.IMAGE_ROW_PAD
+    off = tgl.operand_offset(np.arange(pad)[:, None], np.arange(k_cols)[None, :], pad)
+    flat = np.sort(off.reshape(-1))
+    assert flat[0] == 0 and flat[-1] == pad * k_cols - 1 and (np.diff(flat) == 1).all()
+    pieces = off.reshape(pad, k_cols // 8, 8)
+    assert (pieces[:, :, 0] % 8 == 0).all()
+    assert (pieces == pieces[:, :, :1] + np.arange(8)).all()
+    # a run of rows of one k tile is one contiguous block: what a bulk copy takes
+    tile = off[8:24, 64:128]
+    assert tile.min() == off[8, 64] - (off[8, 64] % 64) and tile.max() - tile.min() == 16 * 64 - 1
+
+
+def test_operand_offset_swizzles_pieces_by_row():
+    """Row r keeps its 128 bytes of a k tile together and stores piece p at
+    p ^ (r % 8), the tensor cores' 128-byte swizzle."""
+    rows = 256
+    for r in (0, 1, 7, 8, 13, 255):
+        for k in (0, 8, 56, 64, 72, 2296):
+            base = ((k // 64) * rows + r) * 64
+            piece = ((k % 64) // 8) ^ (r % 8)
+            assert tgl.operand_offset(r, k, rows) == base + 8 * piece
+            assert tgl.operand_offset(r, k + 5, rows) == base + 8 * piece + 5
+
+
+@pytest.mark.parametrize(
+    "rows,plan",
+    [
+        (344, tgl.LaunchPlan(128, 128, 4, 64, 128)),  # one shot: 120 and 108 blocks
+        (4096, tgl.LaunchPlan(256, 160, 1, 256, 144)),  # serving grid: 128 and 256 blocks
+    ],
+)
+def test_launch_plan_at_the_two_measured_shapes(rows, plan):
+    assert tgl.launch_plan(rows) == plan
+
+
+@pytest.mark.parametrize("rows", [8, 136, 208, 344, 392, 768, 1032, 2048, 4096, 4104, 20000])
+def test_launch_plan_is_launchable(rows):
+    """Every plan names tiles the CUDA file instantiates, that divide the
+    widths; K is split only where the tiles alone leave SMs idle, and then
+    the split grid still fits the SMs in one round."""
+    p = tgl.launch_plan(rows)
+    assert (p.syn_bm, p.syn_bn) in tgl._SYN_TILES and (p.ana_bm, p.ana_bn) in tgl._ANA_TILES
+    assert S_PAD % p.syn_bn == 0 and F_PAD % (p.ana_bn // 2) == 0
+    assert (2 * F_PAD // tgl.IMAGE_K) % p.syn_split == 0
+    tiles = -(-rows // p.syn_bm) * (S_PAD // p.syn_bn)
+    if p.syn_split > 1:
+        assert tiles < tgl.NUM_SMS and tiles * p.syn_split <= tgl.NUM_SMS
+    if tiles >= tgl.NUM_SMS:
+        assert p.syn_split == 1
+
+
+def test_serving_shape_moves_fewer_bytes_than_the_old_design():
+    rows = 4096
+    plan = tgl.launch_plan(rows)
+    scratch = tgl.scratch_bytes(rows, plan)
+    assert plan.syn_split == 1
+    assert scratch["syn"] == rows * S_PAD * 4 <= 21e6 < OLD_SYN_SCRATCH(rows) == 41943040
+    it = tgl.iteration_bytes(rows, plan)
+    last = tgl.iteration_bytes(rows, plan, last=True)
+    assert it["total"] < 0.65 * OLD_ITERATION_BYTES(rows)
+    # re and im are stored once per call, by the last iteration alone
+    assert last["total"] - it["total"] == 2 * rows * F_PAD * 4
+    assert last["ana_gemm_write"] - it["ana_gemm_write"] == 2 * rows * F_PAD * 4
+    per_call = 93 * it["total"] + last["total"]
+    assert per_call < 94 * OLD_ITERATION_BYTES(rows) - 93 * 2 * rows * F_PAD * 4
+
+
+def test_one_shot_shape_scratch_and_bytes():
+    rows = 344
+    plan = tgl.launch_plan(rows)
+    scratch = tgl.scratch_bytes(rows, plan)
+    # the operand images are padded to whole row tiles; the partial sums are not
+    assert scratch["a_syn"] == 512 * 2 * F_PAD * 2 and scratch["a_ana"] == 512 * S_PAD * 2
+    assert scratch["syn"] == plan.syn_split * rows * S_PAD * 4
+    it = tgl.iteration_bytes(rows, plan)
+    assert it["band_read"] == scratch["syn"] + S_PAD * 4
+    assert it["total"] == sum(v for k, v in it.items() if k != "total")
