@@ -10,7 +10,8 @@ would convert them).
         -s src1.wav src2.wav -t tgtA.wav tgtB.wav -o out_dir --gl_method fused
 
 Writes ``out_dir/<source-stem>__to__<target-stem>.wav`` for each pair.
-``-m`` is a reference-format torch ``.ckpt``. Runs on ``cuda`` unless
+``-m`` is a reference-format torch ``.ckpt``, or a path whose
+``<path>.ckpts`` directory holds the port's training checkpoints. Runs on ``cuda`` unless
 ``--device cpu`` is given.
 """
 
@@ -22,7 +23,7 @@ def build_parser() -> ArgumentParser:
     parser = ArgumentParser()
     parser.add_argument("-attr", "-a", help="attr file path", required=True)
     parser.add_argument("-config", "-c", help="config file path", required=True)
-    parser.add_argument("-model", "-m", help="model path (.ckpt)", required=True)
+    parser.add_argument("-model", "-m", help="model path (.ckpt, or the -store_model_path of a training run)", required=True)
     parser.add_argument("-sources", "-s", nargs="+", required=True,
                         help="source wav paths (content)")
     parser.add_argument("-targets", "-t", nargs="+", required=True,
@@ -56,7 +57,7 @@ def main(argv=None) -> None:
     from ..infer.inferencer import Inferencer
 
     config = load_config(args.config)
-    inferencer = Inferencer.from_torch_checkpoint(
+    inferencer = Inferencer.from_model_path(
         config, args.model, args.attr, device=args.device,
         gl_method=args.gl_method, precision=args.precision,
     )

@@ -4,7 +4,8 @@
         -a attr.pkl -c config.yaml -m vctk_model.ckpt \
         -s source.wav -t target.wav -o output.wav --gl_method fused
 
-``-m`` is a reference-format torch ``.ckpt``. Runs on ``cuda`` unless
+``-m`` is a reference-format torch ``.ckpt``, or a path whose
+``<path>.ckpts`` directory holds the port's training checkpoints. Runs on ``cuda`` unless
 ``--device cpu`` is given.
 """
 
@@ -15,7 +16,7 @@ def build_parser() -> ArgumentParser:
     parser = ArgumentParser()
     parser.add_argument("-attr", "-a", help="attr file path", required=True)
     parser.add_argument("-config", "-c", help="config file path", required=True)
-    parser.add_argument("-model", "-m", help="model path (.ckpt)", required=True)
+    parser.add_argument("-model", "-m", help="model path (.ckpt, or the -store_model_path of a training run)", required=True)
     parser.add_argument("-source", "-s", help="source wav path", required=True)
     parser.add_argument("-target", "-t", help="target wav path", required=True)
     parser.add_argument("-output", "-o", help="output wav path", required=True)
@@ -41,7 +42,7 @@ def main(argv=None) -> None:
     from ..infer.inferencer import Inferencer
 
     config = load_config(args.config)
-    inferencer = Inferencer.from_torch_checkpoint(
+    inferencer = Inferencer.from_model_path(
         config, args.model, args.attr, device=args.device,
         gl_method=args.gl_method, precision=args.precision,
         gpu_vocoder=not args.cpu_vocoder,

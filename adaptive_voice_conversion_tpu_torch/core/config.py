@@ -117,8 +117,10 @@ class TrainConfig:
     loss: LambdaConfig = field(default_factory=LambdaConfig)
     annealing_iters: int = 20000
     signal: SignalConfig = field(default_factory=SignalConfig)
-    # training-side knobs of the JAX package, carried so a config file
-    # round-trips field-for-field; the inference slice reads none of them
+    # training-side knobs: compute_dtype, data_dtype, input_mode,
+    # opt_state_dtype and opt_fused are read by train/; the rest belong to
+    # the data modes that are not ported yet and are carried so that a
+    # config file round-trips field for field
     compute_dtype: str = "float32"
     data_dtype: str = "float32"
     input_mode: str = "auto"
@@ -205,6 +207,34 @@ def config_from_dict(raw: dict) -> TrainConfig:
         opt_state_dtype=str(raw.get("opt_state_dtype", "float32")),
         opt_fused=_parse_opt_fused(raw.get("opt_fused", False)),
     )
+
+
+def config_to_dict(cfg: TrainConfig) -> dict:
+    """Dump back to the reference-compatible YAML schema."""
+
+    def asdict(dc):
+        d = dataclasses.asdict(dc)
+        return {k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()}
+
+    return {
+        "SpeakerEncoder": asdict(cfg.model.speaker_encoder),
+        "ContentEncoder": asdict(cfg.model.content_encoder),
+        "Decoder": asdict(cfg.model.decoder),
+        "data_loader": asdict(cfg.data_loader),
+        "optimizer": asdict(cfg.optimizer),
+        "lambda": asdict(cfg.loss),
+        "annealing_iters": cfg.annealing_iters,
+        "signal": asdict(cfg.signal),
+        "compute_dtype": cfg.compute_dtype,
+        "data_dtype": cfg.data_dtype,
+        "input_mode": cfg.input_mode,
+        "device_data_budget_bytes": cfg.device_data_budget_bytes,
+        "chunk_bytes": cfg.chunk_bytes,
+        "chunk_repeats": cfg.chunk_repeats,
+        "inner_steps": cfg.inner_steps,
+        "opt_state_dtype": cfg.opt_state_dtype,
+        "opt_fused": cfg.opt_fused,
+    }
 
 
 def load_config(path: str) -> TrainConfig:

@@ -79,6 +79,38 @@ class Inferencer:
         model = load_checkpoint(ckpt_path, config.model, device)
         return cls(config, model, attr_path, device=device, **kw)
 
+    @classmethod
+    def from_train_checkpoint(
+        cls, config: TrainConfig, store_model_path: str, attr_path: str,
+        device: DeviceLike = None, **kw,
+    ) -> "Inferencer":
+        """Load the newest training checkpoint under
+        ``<store_model_path>.ckpts/`` (train/checkpoint.py). Only the
+        model's state_dict is read; the optimiser state is not needed."""
+        from ..train.checkpoint import CheckpointManager
+
+        dev = resolve_device(device)
+        mngr = CheckpointManager(f"{store_model_path}.ckpts")
+        step = mngr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {store_model_path}.ckpts")
+        model_state, _, _ = mngr.restore(step)
+        model = AE(config.model)
+        model.load_state_dict(model_state, strict=True)
+        return cls(config, model, attr_path, device=dev, **kw)
+
+    @classmethod
+    def from_model_path(
+        cls, config: TrainConfig, model_path: str, attr_path: str, **kw
+    ) -> "Inferencer":
+        """What the CLIs' ``-m`` means: training checkpoints when
+        ``<model_path>.ckpts/`` exists, else a reference-format ``.ckpt``."""
+        import os
+
+        if os.path.isdir(f"{model_path}.ckpts"):
+            return cls.from_train_checkpoint(config, model_path, attr_path, **kw)
+        return cls.from_torch_checkpoint(config, model_path, attr_path, **kw)
+
     def normalize(self, x: np.ndarray) -> np.ndarray:
         return (x - self.attr["mean"]) / self.attr["std"]
 

@@ -7,6 +7,8 @@ on (B, C, T).
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 from torch import nn
 
@@ -21,6 +23,34 @@ class AE(nn.Module):
         self.speaker_encoder = SpeakerEncoder(cfg.speaker_encoder)
         self.content_encoder = ContentEncoder(cfg.content_encoder)
         self.decoder = Decoder(cfg.decoder)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training forward: the same utterance x (B, T, C) feeds both
+        encoders; ``z = mu + exp(log_sigma / 2) * eps``. Returns
+        ``(mu, log_sigma, emb, dec)`` on (B, T, C).
+
+        ``eps`` (B, T/prod(subsample), c_out) f32 is the normal draw; when
+        it is None it is drawn from ``generator`` (which must be on x's
+        device). ``generator`` also feeds the dropout masks in training
+        mode."""
+        xc = x.transpose(1, 2)
+        emb = self.speaker_encoder(xc, generator, compute_dtype)
+        mu, log_sigma = self.content_encoder(xc, generator, compute_dtype)
+        if eps is None:
+            eps = torch.randn(
+                log_sigma.shape, generator=generator, device=x.device, dtype=torch.float32
+            )
+        else:
+            eps = eps.transpose(1, 2)
+        z = mu + torch.exp(log_sigma / 2) * eps
+        dec = self.decoder(z, emb, generator, compute_dtype)
+        return mu.transpose(1, 2), log_sigma.transpose(1, 2), emb, dec.transpose(1, 2)
 
     def inference(self, x: torch.Tensor, x_cond: torch.Tensor) -> torch.Tensor:
         """Speaker embedding from the target x_cond (B, T_c, C), content mu

@@ -32,7 +32,8 @@ from .ae import AE
 from .modules import ContentEncoder, Decoder, SpeakerEncoder, _dense
 
 
-def _conv(layer: nn.Conv1d, x: torch.Tensor, lengths: torch.Tensor):
+def _conv(layer, x: torch.Tensor, lengths: torch.Tensor):
+    # layer.weight of a spectral-norm layer is its normalised weight
     return conv1d_masked(x, lengths, layer.weight, layer.bias, stride=layer.stride[0])
 
 

@@ -8,8 +8,18 @@ loads a reference ``.ckpt`` as it is. Layers hold the weights; the forward
 passes run the ops in ``ops/`` (reflect-pad convs with the reference's
 even-kernel asymmetry, the pair-fused conv bank).
 
-Dropout is left out: its rate is 0 at inference. Spectral norm
-(``sn=True``) belongs to the training slice and raises here.
+Training adds three things. *Dropout* is active only when the module is in
+training mode, its rate is above 0 and a ``torch.Generator`` is passed in;
+the global generator is never used. *compute_dtype* is handed to every conv
+and dense op (ops/conv.py). *Spectral norm* (``DecoderConfig.sn``): every
+decoder layer is a ``SpectralNormConv1d`` / ``SpectralNormLinear`` holding
+the parameter ``weight_orig`` and the buffers ``weight_u`` and ``weight_v``
+(the keys of a reference ``sn=True`` checkpoint). Its ``weight`` property is
+``weight_orig / sigma``, with one power iteration from the stored ``u``
+under ``no_grad`` and ``sigma = u'^T W v`` differentiable through ``W``.
+The forward never moves the stored ``u``: ``spectral_norm_update`` advances
+it, and the training step calls that once per step, on the weights the step
+started from.
 """
 
 from __future__ import annotations
@@ -30,33 +40,130 @@ from ..ops.resample import (
     upsample_nearest_time,
 )
 
+SN_EPS = 1e-12
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x) + SN_EPS)
+
+
+def spectral_normalize(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``w / sigma`` for a weight (O, ...) and its stored vector ``u`` (O,):
+    one power iteration on the detached (O, -1) matrix, then
+    ``sigma = u'^T W v`` with the gradient through ``W``, so d(w/sigma)/dw
+    keeps the ``-W u' v^T / sigma^2`` term."""
+    wm = w.reshape(w.shape[0], -1).float()
+    with torch.no_grad():
+        v = _normalize(wm.t() @ u)
+        u2 = _normalize(wm @ v)
+    sigma = torch.dot(u2, wm @ v)
+    return w / sigma.to(w.dtype)
+
+
+class _SpectralNormLayer(nn.Module):
+    """A layer whose ``weight`` is ``weight_orig`` spectrally normalised."""
+
+    def __init__(self, weight_shape: tuple):
+        super().__init__()
+        c_out = weight_shape[0]
+        self.weight_orig = nn.Parameter(torch.empty(weight_shape))
+        self.bias = nn.Parameter(torch.empty(c_out))
+        self.register_buffer("weight_u", torch.zeros(c_out))
+        self.register_buffer("weight_v", torch.zeros(math.prod(weight_shape[1:])))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight_orig[0].numel())
+        with torch.no_grad():
+            self.weight_orig.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+            self.weight_u.copy_(_normalize(self.weight_u.normal_(generator=generator)))
+            self.weight_v.copy_(_normalize(self._matrix().t() @ self.weight_u))
+
+    def _matrix(self) -> torch.Tensor:
+        return self.weight_orig.detach().reshape(self.weight_orig.shape[0], -1).float()
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return spectral_normalize(self.weight_orig, self.weight_u)
+
+    @torch.no_grad()
+    def power_iteration(self) -> None:
+        """Advance the stored ``u`` (and ``v``) by one power iteration on
+        the current ``weight_orig``."""
+        wm = self._matrix()
+        v = _normalize(wm.t() @ self.weight_u)
+        self.weight_v.copy_(v)
+        self.weight_u.copy_(_normalize(wm @ v))
+
+
+class SpectralNormConv1d(_SpectralNormLayer):
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int = 1):
+        super().__init__((c_out, c_in, kernel_size))
+        self.stride = (stride,)
+
+
+class SpectralNormLinear(_SpectralNormLayer):
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__((c_out, c_in))
+
+
+def spectral_norm_update(module: nn.Module) -> None:
+    """One power iteration on every spectral-norm layer under ``module``.
+    The training step calls it once per step, before the optimiser changes
+    the weights; nothing else moves ``weight_u``."""
+    for m in module.modules():
+        if isinstance(m, _SpectralNormLayer):
+            m.power_iteration()
+
 
 def bank_kernel_sizes(cfg) -> list:
     """Conv bank kernels: range(bank_scale, bank_size + 1, bank_scale)."""
     return list(range(cfg.bank_scale, cfg.bank_size + 1, cfg.bank_scale))
 
 
-def _conv(layer: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    return conv1d(x, layer.weight, layer.bias, stride=layer.stride[0])
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return dense(x, layer.weight, layer.bias)
-
-
-def _bank(layers: nn.ModuleList, x, kernel_sizes, act) -> torch.Tensor:
-    return conv_bank(
-        x, [c.weight for c in layers], [c.bias for c in layers], kernel_sizes, act
+def _conv(layer, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """``layer.weight`` is the parameter of an ``nn.Conv1d`` and the
+    normalised weight of a ``SpectralNormConv1d``."""
+    return conv1d(
+        x, layer.weight, layer.bias, stride=layer.stride[0], compute_dtype=compute_dtype
     )
+
+
+def _dense(layer, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    return dense(x, layer.weight, layer.bias, compute_dtype=compute_dtype)
+
+
+def _bank(layers: nn.ModuleList, x, kernel_sizes, act, compute_dtype=None) -> torch.Tensor:
+    return conv_bank(
+        x, [c.weight for c in layers], [c.bias for c in layers], kernel_sizes, act,
+        compute_dtype=compute_dtype,
+    )
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], training: bool
+) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (on x's
+    device). The identity in eval mode, at rate 0, or without a generator."""
+    if not training or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Re-draw every Conv1d/Linear weight and bias from U(-1/sqrt(fan_in),
     1/sqrt(fan_in)), PyTorch's default for these layers and the JAX
-    package's init, from ``generator`` so a seed fixes the weights."""
+    package's init, from ``generator`` so a seed fixes the weights. A
+    spectral-norm layer also draws its ``weight_u`` (a unit normal vector)
+    from the same generator."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv1d, nn.Linear)):
+            if isinstance(m, _SpectralNormLayer):
+                m.reset_parameters(generator)
+            elif isinstance(m, (nn.Conv1d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
@@ -92,21 +199,26 @@ class SpeakerEncoder(nn.Module):
         )
         self.output_layer = nn.Linear(c_h, cfg.c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = self.act
-        out = _bank(self.conv_bank, x, self.kernel_sizes, act)
-        out = act(_conv(self.in_conv_layer, out))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        act, cd = self.act, compute_dtype
+        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training)
+        out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
+        out = act(_conv(self.in_conv_layer, out, cd))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):
-            y = act(_conv(first, out))
-            y = act(_conv(second, y))
+            y = drop(act(_conv(first, out, cd)))
+            y = drop(act(_conv(second, y, cd)))
             sub = second.stride[0]
             if sub > 1:
                 out = avg_pool_time_ceil(out, sub)
             out = y + out
         out = global_avg_pool_time(out)
         for first, second in zip(self.first_dense_layers, self.second_dense_layers):
-            out = act(_dense(second, act(_dense(first, out)))) + out
-        return _dense(self.output_layer, out)
+            y = drop(act(_dense(first, out, cd)))
+            out = drop(act(_dense(second, y, cd))) + out
+        return _dense(self.output_layer, out, cd)
 
 
 class ContentEncoder(nn.Module):
@@ -133,19 +245,23 @@ class ContentEncoder(nn.Module):
         self.mean_layer = nn.Conv1d(c_h, cfg.c_out, 1)
         self.std_layer = nn.Conv1d(c_h, cfg.c_out, 1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        act = self.act
-        out = _bank(self.conv_bank, x, self.kernel_sizes, act)
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        act, cd = self.act, compute_dtype
+        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training)
+        out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
         # instance norm before every activation
-        out = act(instance_norm_time(_conv(self.in_conv_layer, out)))
+        out = drop(act(instance_norm_time(_conv(self.in_conv_layer, out, cd))))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):
-            y = act(instance_norm_time(_conv(first, out)))
-            y = act(instance_norm_time(_conv(second, y)))
+            y = drop(act(instance_norm_time(_conv(first, out, cd))))
+            y = drop(act(instance_norm_time(_conv(second, y, cd))))
             sub = second.stride[0]
             if sub > 1:
                 out = avg_pool_time_ceil(out, sub)
             out = y + out
-        return _conv(self.mean_layer, out), _conv(self.std_layer, out)
+        return _conv(self.mean_layer, out, cd), _conv(self.std_layer, out, cd)
 
 
 class Decoder(nn.Module):
@@ -153,36 +269,40 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.sn:
-            raise NotImplementedError(
-                "Decoder(sn=True): spectral norm is not ported yet"
-            )
         self.cfg = cfg
         self.act = act_fn(cfg.act)
         c_h = cfg.c_h
-        self.in_conv_layer = nn.Conv1d(cfg.c_in, c_h, 1)
+        # with sn, every layer of the decoder carries the power-iteration state
+        conv = SpectralNormConv1d if cfg.sn else nn.Conv1d
+        linear = SpectralNormLinear if cfg.sn else nn.Linear
+        self.in_conv_layer = conv(cfg.c_in, c_h, 1)
         self.first_conv_layers = nn.ModuleList(
-            [nn.Conv1d(c_h, c_h, cfg.kernel_size) for _ in range(cfg.n_conv_blocks)]
+            [conv(c_h, c_h, cfg.kernel_size) for _ in range(cfg.n_conv_blocks)]
         )
         self.second_conv_layers = nn.ModuleList(
-            [nn.Conv1d(c_h, c_h * up, cfg.kernel_size)
+            [conv(c_h, c_h * up, cfg.kernel_size)
              for up in cfg.upsample[: cfg.n_conv_blocks]]
         )
         self.conv_affine_layers = nn.ModuleList(
-            [nn.Linear(cfg.c_cond, c_h * 2) for _ in range(2 * cfg.n_conv_blocks)]
+            [linear(cfg.c_cond, c_h * 2) for _ in range(2 * cfg.n_conv_blocks)]
         )
-        self.out_conv_layer = nn.Conv1d(c_h, cfg.c_out, 1)
+        self.out_conv_layer = conv(c_h, cfg.c_out, 1)
 
-    def forward(self, z: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        act = self.act
-        out = act(instance_norm_time(_conv(self.in_conv_layer, z)))
+    def forward(
+        self, z: torch.Tensor, cond: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        act, cd = self.act, compute_dtype
+        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training)
+        out = drop(act(instance_norm_time(_conv(self.in_conv_layer, z, cd))))
         for l, up in enumerate(self.cfg.upsample[: self.cfg.n_conv_blocks]):
-            y = instance_norm_time(_conv(self.first_conv_layers[l], out))
-            y = act(adain(y, _dense(self.conv_affine_layers[2 * l], cond)))
-            y = _conv(self.second_conv_layers[l], y)
+            y = instance_norm_time(_conv(self.first_conv_layers[l], out, cd))
+            y = drop(act(adain(y, _dense(self.conv_affine_layers[2 * l], cond, cd))))
+            y = _conv(self.second_conv_layers[l], y, cd)
             if up > 1:
                 y = pixel_shuffle_time(y, up)
             y = instance_norm_time(y)
-            y = act(adain(y, _dense(self.conv_affine_layers[2 * l + 1], cond)))
+            y = drop(act(adain(y, _dense(self.conv_affine_layers[2 * l + 1], cond, cd))))
             out = y + (upsample_nearest_time(out, up) if up > 1 else out)
-        return _conv(self.out_conv_layer, out)
+        return _conv(self.out_conv_layer, out, cd)

@@ -5,7 +5,9 @@ module tree of ``models/modules.py``, so loading one is
 ``load_state_dict(strict=True)``. ``state_dict_from_jax_params`` is the
 port's own copy of the JAX package's exporter mapping: it turns the JAX
 parameter tree, as numpy arrays, into that state_dict (conv (K, I, O) ->
-(O, I, K), dense (I, O) -> (O, I)).
+(O, I, K), dense (I, O) -> (O, I)); ``jax_params_from_state_dict`` is its
+inverse. Parameters and spectral-norm vectors cross; optimiser state does
+not.
 """
 
 from __future__ import annotations
@@ -20,56 +22,109 @@ from ..core.device import DeviceLike, resolve_device
 from .ae import AE
 
 
+def _put(sd: dict, name: str, p: dict, w: np.ndarray) -> None:
+    """One layer: ``weight`` and ``bias``, or for a spectral-norm layer
+    (its JAX dict carries ``u``) ``weight_orig``, ``bias``, ``weight_u`` and
+    the derived ``weight_v`` = W^T u normalised."""
+    w = np.ascontiguousarray(w)
+    if "u" in p:
+        u = np.array(p["u"], np.float32)
+        v = w.reshape(w.shape[0], -1).T @ u
+        sd[f"{name}.weight_orig"] = torch.from_numpy(w)
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+        sd[f"{name}.weight_u"] = torch.from_numpy(u)
+        sd[f"{name}.weight_v"] = torch.from_numpy(
+            (v / (np.linalg.norm(v) + 1e-12)).astype(np.float32)
+        )
+    else:
+        sd[f"{name}.weight"] = torch.from_numpy(w)
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+
+
 def _conv(sd: dict, name: str, p: dict) -> None:
-    sd[f"{name}.weight"] = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(p["w"], np.float32).transpose(2, 1, 0))
-    )
-    sd[f"{name}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+    _put(sd, name, p, np.asarray(p["w"], np.float32).transpose(2, 1, 0))
 
 
 def _dense(sd: dict, name: str, p: dict) -> None:
-    sd[f"{name}.weight"] = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(p["w"], np.float32).T)
-    )
-    sd[f"{name}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+    _put(sd, name, p, np.asarray(p["w"], np.float32).T)
+
+
+def _layer_names(cfg: AEConfig):
+    """(state_dict prefix, path into the JAX tree, is_conv) for every layer,
+    in the exporter's order."""
+    out = []
+    se, ce, de = cfg.speaker_encoder, cfg.content_encoder, cfg.decoder
+    for mod, c in (("speaker_encoder", se), ("content_encoder", ce)):
+        n_bank = len(range(c.bank_scale, c.bank_size + 1, c.bank_scale))
+        out += [(f"{mod}.conv_bank.{i}", (mod, "conv_bank", i), True) for i in range(n_bank)]
+        out.append((f"{mod}.in_conv_layer", (mod, "in_conv"), True))
+        for l in range(c.n_conv_blocks):
+            out.append((f"{mod}.first_conv_layers.{l}", (mod, "conv_blocks", l, "first"), True))
+            out.append((f"{mod}.second_conv_layers.{l}", (mod, "conv_blocks", l, "second"), True))
+        if mod == "speaker_encoder":
+            for l in range(c.n_dense_blocks):
+                out.append((f"{mod}.first_dense_layers.{l}", (mod, "dense_blocks", l, "first"), False))
+                out.append((f"{mod}.second_dense_layers.{l}", (mod, "dense_blocks", l, "second"), False))
+            out.append((f"{mod}.output_layer", (mod, "output"), False))
+        else:
+            out.append((f"{mod}.mean_layer", (mod, "mean"), True))
+            out.append((f"{mod}.std_layer", (mod, "std"), True))
+    out.append(("decoder.in_conv_layer", ("decoder", "in_conv"), True))
+    for l in range(de.n_conv_blocks):
+        blk = ("decoder", "conv_blocks", l)
+        out.append((f"decoder.first_conv_layers.{l}", blk + ("first",), True))
+        out.append((f"decoder.second_conv_layers.{l}", blk + ("second",), True))
+        out.append((f"decoder.conv_affine_layers.{2 * l}", blk + ("affine1",), False))
+        out.append((f"decoder.conv_affine_layers.{2 * l + 1}", blk + ("affine2",), False))
+    out.append(("decoder.out_conv_layer", ("decoder", "out_conv"), True))
+    return out
 
 
 def state_dict_from_jax_params(params: dict, cfg: AEConfig) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves) -> the port's state_dict (CPU f32)."""
-    if cfg.decoder.sn:
-        raise NotImplementedError("sn=True parameters are not ported yet")
+    """JAX parameter tree (numpy leaves) -> the port's state_dict (CPU f32).
+    An ``sn=True`` tree's ``w`` / ``u`` become ``weight_orig`` / ``weight_u``."""
     sd: dict = {}
-    se = params["speaker_encoder"]
-    for i, p in enumerate(se["conv_bank"]):
-        _conv(sd, f"speaker_encoder.conv_bank.{i}", p)
-    _conv(sd, "speaker_encoder.in_conv_layer", se["in_conv"])
-    for l, blk in enumerate(se["conv_blocks"]):
-        _conv(sd, f"speaker_encoder.first_conv_layers.{l}", blk["first"])
-        _conv(sd, f"speaker_encoder.second_conv_layers.{l}", blk["second"])
-    for l, blk in enumerate(se["dense_blocks"]):
-        _dense(sd, f"speaker_encoder.first_dense_layers.{l}", blk["first"])
-        _dense(sd, f"speaker_encoder.second_dense_layers.{l}", blk["second"])
-    _dense(sd, "speaker_encoder.output_layer", se["output"])
-
-    ce = params["content_encoder"]
-    for i, p in enumerate(ce["conv_bank"]):
-        _conv(sd, f"content_encoder.conv_bank.{i}", p)
-    _conv(sd, "content_encoder.in_conv_layer", ce["in_conv"])
-    for l, blk in enumerate(ce["conv_blocks"]):
-        _conv(sd, f"content_encoder.first_conv_layers.{l}", blk["first"])
-        _conv(sd, f"content_encoder.second_conv_layers.{l}", blk["second"])
-    _conv(sd, "content_encoder.mean_layer", ce["mean"])
-    _conv(sd, "content_encoder.std_layer", ce["std"])
-
-    de = params["decoder"]
-    _conv(sd, "decoder.in_conv_layer", de["in_conv"])
-    for l, blk in enumerate(de["conv_blocks"]):
-        _conv(sd, f"decoder.first_conv_layers.{l}", blk["first"])
-        _conv(sd, f"decoder.second_conv_layers.{l}", blk["second"])
-        _dense(sd, f"decoder.conv_affine_layers.{2 * l}", blk["affine1"])
-        _dense(sd, f"decoder.conv_affine_layers.{2 * l + 1}", blk["affine2"])
-    _conv(sd, "decoder.out_conv_layer", de["out_conv"])
+    for name, path, is_conv in _layer_names(cfg):
+        p = params
+        for key in path:
+            p = p[key]
+        (_conv if is_conv else _dense)(sd, name, p)
     return sd
+
+
+def jax_params_from_state_dict(sd: Dict[str, torch.Tensor], cfg: AEConfig) -> dict:
+    """The inverse: the port's state_dict -> the JAX tree's layout and names
+    with numpy leaves (conv (O, I, K) -> (K, I, O), dense (O, I) -> (I, O);
+    ``weight_orig`` / ``weight_u`` -> ``w`` / ``u``; ``weight_v`` has no
+    place in the tree and is dropped)."""
+    def leaf(name: str, is_conv: bool) -> dict:
+        sn = f"{name}.weight_orig" in sd
+        w = sd[f"{name}.weight_orig" if sn else f"{name}.weight"].detach().cpu().float().numpy()
+        out = {
+            "w": np.ascontiguousarray(w.transpose(2, 1, 0) if is_conv else w.T),
+            "b": sd[f"{name}.bias"].detach().cpu().float().numpy().copy(),
+        }
+        if sn:
+            out["u"] = sd[f"{name}.weight_u"].detach().cpu().float().numpy().copy()
+        return out
+
+    tree: dict = {}
+    for name, path, is_conv in _layer_names(cfg):
+        node = tree
+        for key, nxt in zip(path[:-1], path[1:]):
+            if isinstance(key, int):
+                while len(node) <= key:
+                    node.append([] if isinstance(nxt, int) else {})
+                node = node[key]
+            else:
+                node = node.setdefault(key, [] if isinstance(nxt, int) else {})
+        last = path[-1]
+        if isinstance(last, int):
+            assert len(node) == last
+            node.append(leaf(name, is_conv))
+        else:
+            node[last] = leaf(name, is_conv)
+    return tree
 
 
 def load_checkpoint(path: str, cfg: AEConfig, device: DeviceLike = None) -> AE:

@@ -30,7 +30,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the ragged fused vocoder's SC against the masked exact one's, and the
      serving times;
   6. the kernel's times at both shapes, each beside the card's name and
-     power limit.
+     power limit;
+  7. training at the same width (batch 128 x 128 frames x 512 mels): (a)
+     one training step on the card against the same step on the CPU, with
+     and without spectral norm; (b) the training CLI in a subprocess on a
+     seeded synthetic corpus, 40 steps with summaries, evals, audio samples
+     and rolling checkpoints; (c) a resumed run against the first run's
+     series, bounded by what two identical runs differ by; (d) the one-shot
+     conversion CLI with --gl_method fused on the trained checkpoint, one
+     kernel launch; (e) the step's times in f32 with TF32 off and on and in
+     bf16, its split, the data stream's and a checkpoint's cost.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
@@ -39,9 +48,13 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import dataclasses
 import json
+import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -53,6 +66,8 @@ import torch
 from scipy.io import wavfile
 
 from adaptive_voice_conversion_tpu_torch.core.config import SignalConfig, load_config
+from adaptive_voice_conversion_tpu_torch.data.dataset import SegmentDataset
+from adaptive_voice_conversion_tpu_torch.data.loader import batch_iterator, device_prefetch
 from adaptive_voice_conversion_tpu_torch.dsp.audio import save_wav
 from adaptive_voice_conversion_tpu_torch.dsp.features import get_spectrograms
 from adaptive_voice_conversion_tpu_torch.dsp.stft import (
@@ -78,6 +93,9 @@ from adaptive_voice_conversion_tpu_torch.models.weights import (
     load_checkpoint,
     save_checkpoint,
 )
+from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
+from adaptive_voice_conversion_tpu_torch.train.optim import kl_lambda, make_optimizer
+from adaptive_voice_conversion_tpu_torch.train.step import make_train_step
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -118,6 +136,39 @@ PEAK_BYTES = 3.35e12
 TOL_ONE_ITER = 1e-3
 TOL_ONE_ITER_FRO = 1e-3
 TOL_SC = 0.005
+# One training step on the card against the same step on the CPU (f32, TF32
+# off; the same weights, batch and eps): the losses to rtol 1e-4, the
+# gradients' global norm to rtol 1e-3. The first Adam step moves every entry
+# by lr * g / (|g| + 1e-8), about lr = 5e-4 in the direction of its
+# gradient's sign whatever the gradient's size, so it amplifies the rounding
+# of an entry whose gradient is near zero up to 2 * lr: on the card 1.4e-3
+# of the 9 million entries came out beyond atol 1e-5 (the gradients are
+# peaked at zero), far more than the 1e-4 first allowed. What is held
+# instead: the first moments (0.1 x the clipped gradient with its weight
+# decay: the same information before that amplification) to 1e-3 of their
+# norm over all tensors (not tensor by tensor: the bias of a convolution
+# that an instance norm follows has a gradient of exactly zero, so its
+# moment is rounding noise around wd * p, 4e-3 apart); the updated
+# parameters to atol 1e-5 at the entries whose gradient exceeds 1e-4 in
+# magnitude on the CPU (10,000 x Adam's eps; 38% of the entries), but for
+# one in a million of them (with spectral norm, whose rank-one gradient term
+# carries a correlated error, 1 of 7.3 million entries above 1e-5 flipped);
+# and no entry further apart than 2 * lr. The share beyond atol is printed.
+# With spectral norm the advanced weight_u to atol 1e-5.
+TOL_STEP_LOSS = 1e-4
+TOL_STEP_GRAD_NORM = 1e-3
+TOL_STEP_PARAM = 1e-5
+STEP_CLEAR_GRADIENT = 1e-4
+TOL_STEP_CLEAR_SHARE = 1e-6
+TOL_STEP_MOMENT = 1e-3
+TOL_STEP_U = 1e-5
+# Resume on the card: cuDNN's backward kernels may sum in another order from
+# run to run, so the bound is 10x what two identical runs from scratch differ
+# by, and never under 1e-3 (relative difference of the loss)
+RESUME_FLOOR = 1e-3
+TRAIN_ITERS = 40
+# seconds of audio in one training batch of 128 segments x 128 frames
+AUDIO_S_PER_STEP = 128 * 128 * SIG.hop_length / SIG.sr
 
 
 def log(msg: str) -> None:
@@ -709,7 +760,7 @@ def host_ms(fn, reps: int = 3) -> float:
     return float(np.median(runs))
 
 
-def phase_serving(card: str) -> None:
+def phase_serving(card: str) -> dict:
     """Batched serving: the 4 x 8 mixed-length grid through the convert_grid
     CLI, then in process against one-at-a-time conversion."""
     cfg_path = REPO / "examples" / "config.yaml"
@@ -823,6 +874,419 @@ def phase_serving(card: str) -> None:
             f"{ns * nt / grid_ms * 1e3:.1f} conversions per second; with trim=False "
             f"{untrimmed_ms:.3f} ms, so the host's trim of {ns * nt} wavs takes "
             f"{grid_ms - untrimmed_ms:.3f} ms ({card})")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def train_step_card_vs_cpu(cfg, seed: int, lam: float = 0.5) -> dict:
+    """One training step from the same seeded weights, batch and eps on the
+    card and on the CPU (f32; the caller turns TF32 off). Returns the two
+    metric dicts and the differences of what the step changed."""
+    dl, ce = cfg.data_loader, cfg.model.content_encoder
+    cpu = AE(cfg.model)
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        rng.standard_normal((dl.batch_size, dl.segment_size, ce.c_in)).astype(np.float32)
+    )
+    t_code = dl.segment_size // int(np.prod(ce.subsample))
+    eps = torch.from_numpy(
+        rng.standard_normal((dl.batch_size, t_code, ce.c_out)).astype(np.float32)
+    )
+    out = {"lr": cfg.optimizer.lr}
+    opts = {}
+    for name, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        opt = make_optimizer(cfg.optimizer, model.parameters(), state_dtype=cfg.opt_state_dtype)
+        m = make_train_step(cfg, model, opt)(x.to(dev), lam, eps=eps.to(dev))
+        out[name] = {k: float(v) for k, v in m.items()}
+        opts[name] = opt
+    n_total = n_beyond = n_clear = n_clear_beyond = 0
+    worst_param = worst_moment = sq_diff = sq_m = 0.0
+    b1 = cfg.optimizer.beta1
+    for pc, pg in zip(cpu.parameters(), card.parameters()):
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        mc = opts["cpu"].state[pc]["exp_avg"].float()
+        mg = opts["card"].state[pg]["exp_avg"].float().cpu()
+        # after one step the first moment is (1 - b1) x the gradient Adam saw
+        clear = (mc / (1.0 - b1)).abs() > STEP_CLEAR_GRADIENT
+        n_total += diff.numel()
+        n_clear += int(clear.sum())
+        n_beyond += int((diff > TOL_STEP_PARAM).sum())
+        n_clear_beyond += int((diff[clear] > TOL_STEP_PARAM).sum())
+        worst_param = max(worst_param, float(diff.max()))
+        worst_moment = max(worst_moment, float(torch.linalg.norm(mg - mc) / torch.linalg.norm(mc)))
+        sq_diff += float((mg - mc).square().sum())
+        sq_m += float(mc.square().sum())
+    out.update(
+        n_params=n_total, share_beyond=n_beyond / n_total, worst_param=worst_param,
+        share_clear=n_clear / n_total, clear_beyond=n_clear_beyond / max(n_clear, 1),
+        moment_all=(sq_diff / sq_m) ** 0.5, worst_moment=worst_moment,
+    )
+    if cfg.model.decoder.sn:
+        bc, bg = dict(cpu.named_buffers()), dict(card.named_buffers())
+        out["worst_u"] = max(
+            float((bg[k].cpu() - bc[k]).abs().max()) for k in bc if k.endswith("weight_u")
+        )
+    return out
+
+
+def check_step_parity(r: dict, what: str) -> None:
+    rel = lambda k: abs(r["card"][k] - r["cpu"][k]) / abs(r["cpu"][k])
+    for k in ("loss", "loss_rec", "loss_kl"):
+        check(np.isfinite(r["card"][k]), f"{what}: {k} on the card is not finite")
+        check(rel(k) <= TOL_STEP_LOSS, f"{what}: {k} card {r['card'][k]} vs CPU {r['cpu'][k]}: "
+              f"relative {rel(k):.3e} > {TOL_STEP_LOSS}")
+    check(rel("grad_norm") <= TOL_STEP_GRAD_NORM,
+          f"{what}: grad_norm card {r['card']['grad_norm']} vs CPU {r['cpu']['grad_norm']}")
+    check(r["clear_beyond"] <= TOL_STEP_CLEAR_SHARE,
+          f"{what}: {r['clear_beyond']:.3e} of the updated parameters whose gradient exceeds "
+          f"{STEP_CLEAR_GRADIENT} differ by more than {TOL_STEP_PARAM} (allowed {TOL_STEP_CLEAR_SHARE})")
+    far = 2 * r["lr"] + TOL_STEP_PARAM
+    check(r["worst_param"] <= far, f"{what}: an updated parameter differs by {r['worst_param']:.3e} > {far}")
+    check(r["moment_all"] <= TOL_STEP_MOMENT,
+          f"{what}: the first moments differ by {r['moment_all']:.3e} of their norm > {TOL_STEP_MOMENT}")
+    if "worst_u" in r:
+        check(r["worst_u"] <= TOL_STEP_U, f"{what}: weight_u differs by {r['worst_u']:.3e} > {TOL_STEP_U}")
+
+
+def phase_train_step_parity(cfg) -> None:
+    """7a: the step on the card against the step on the CPU, full width."""
+    for sn in (False, True):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, decoder=dataclasses.replace(cfg.model.decoder, sn=sn)))
+        t0 = time.perf_counter()
+        r = train_step_card_vs_cpu(c, SEED + (1 if sn else 0))
+        what = f"train step sn={sn}"
+        check_step_parity(r, what)
+        rel = lambda k: abs(r["card"][k] - r["cpu"][k]) / abs(r["cpu"][k])
+        log(f"[train] 7a {what}, batch {c.data_loader.batch_size} x {c.data_loader.segment_size} x "
+            f"{c.model.content_encoder.c_in}, {r['n_params']} parameters, card vs CPU, TF32 off: "
+            f"loss {r['card']['loss']:.6f} vs {r['cpu']['loss']:.6f} (relative {rel('loss'):.2e}), "
+            f"loss_rec {rel('loss_rec'):.2e}, loss_kl {rel('loss_kl'):.2e} (tol {TOL_STEP_LOSS}); "
+            f"pre-clip grad_norm {r['card']['grad_norm']:.5f} vs {r['cpu']['grad_norm']:.5f} "
+            f"(relative {rel('grad_norm'):.2e}, tol {TOL_STEP_GRAD_NORM}); first moments "
+            f"{r['moment_all']:.2e} apart relative to their norm over all tensors (tol "
+            f"{TOL_STEP_MOMENT}; worst single tensor {r['worst_moment']:.2e}); updated parameters: "
+            f"of the {r['share_clear']:.3f} of the entries whose gradient exceeds "
+            f"{STEP_CLEAR_GRADIENT}, {r['clear_beyond']:.1e} lie beyond atol {TOL_STEP_PARAM} (allowed "
+            f"{TOL_STEP_CLEAR_SHARE}); over all entries largest |diff| {r['worst_param']:.2e} (the "
+            f"first Adam step moves an entry by lr x g / (|g| + 1e-8), which amplifies the rounding "
+            f"of a near-zero gradient up to 2 x lr = {2 * r['lr']:.0e}) and the share beyond atol "
+            f"is {r['share_beyond']:.2e}"
+            + (f"; weight_u max|diff| {r['worst_u']:.2e} (tol {TOL_STEP_U})" if sn else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def write_corpus(d: Path, n_mels: int = 512, seg: int = 128) -> dict:
+    """A seeded synthetic corpus in the preprocess artifacts' format: 64
+    training utterances of 200-400 frames with 60 indexed segments each
+    (3840 entries, 30 batches of 128 an epoch), an in_test split of 3
+    utterances with 50 entries each, and attr.pkl. The mels are smooth
+    low-rank patterns plus a per-utterance offset and a little noise,
+    z-normalised by the attr statistics: something a model can learn."""
+    rng = np.random.default_rng(SEED + 70)
+    basis = np.cumsum(rng.standard_normal((12, n_mels)), axis=1)
+    basis = (basis - basis.mean(axis=1, keepdims=True)) / basis.std(axis=1, keepdims=True)
+
+    def utterance(n: int) -> np.ndarray:
+        walk = np.cumsum(rng.standard_normal((n + 20, 12)), axis=0)
+        coeff = np.stack([np.convolve(walk[:, j], np.ones(21) / 21, "valid")[:n] for j in range(12)], 1)
+        coeff = (coeff - coeff.mean(axis=0)) / (coeff.std(axis=0) + 1e-6)
+        speaker = 0.5 * rng.standard_normal(12) @ basis
+        return (coeff @ basis / np.sqrt(12) + speaker + 0.1 * rng.standard_normal((n, n_mels)))
+
+    def split(name: str, n_utts: int, per_utt: int, index_name: str) -> dict:
+        data, index = {}, []
+        for i in range(n_utts):
+            n = int(rng.integers(200, 401))
+            data[f"{name}_{i:03d}"] = utterance(n)
+            index += [[f"{name}_{i:03d}", int(t)] for t in rng.integers(0, n - seg, per_utt)]
+        return data, index, index_name
+
+    splits = [split("train", 64, 60, f"train_samples_{seg}.json"),
+              split("in_test", 3, 50, f"in_test_samples_{seg}.json")]
+    allm = np.concatenate(list(splits[0][0].values()))
+    mean, std = allm.mean(axis=0), allm.std(axis=0)
+    for (data, index, index_name), pkl in zip(splits, (f"train_{seg}.pkl", "in_test.pkl")):
+        with open(d / pkl, "wb") as f:
+            pickle.dump({u: ((m - mean) / std).astype(np.float32) for u, m in data.items()}, f)
+        with open(d / index_name, "w") as f:
+            json.dump(index, f)
+    # what a denormalised mel must be for mel_to_mag: values in (0, 1]
+    attr = {"mean": np.full(n_mels, 0.5, np.float32), "std": np.full(n_mels, 0.15, np.float32)}
+    with open(d / "attr.pkl", "wb") as f:
+        pickle.dump(attr, f)
+    return {"frames": int(allm.shape[0]), "entries": len(splits[0][1]), "seg": seg}
+
+
+def run_train_cli(d: Path, argv, timeout: int = 600) -> float:
+    """The training CLI as a user starts it; returns its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "adaptive_voice_conversion_tpu_torch.cli.train", *map(str, argv)],
+        cwd=REPO, capture_output=True, text=True, timeout=timeout,
+    )
+    check(proc.returncode == 0, f"cli.train failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def read_series(logdir: Path, tag: str) -> dict:
+    """{step: {metric: value}} of one tag from a run's metrics.jsonl."""
+    out = {}
+    with open(logdir / "metrics.jsonl") as f:
+        for line in f:
+            rec = json.loads(line)
+            vals = {k[len(tag) + 1:]: v for k, v in rec.items() if k.startswith(tag + "/")}
+            if vals:
+                out.setdefault(rec["step"], {}).update(vals)
+    return out
+
+
+def train_argv(d: Path, cfg_path: Path, name: str, iters: int, *extra) -> list:
+    return ["-config", cfg_path, "-data_dir", d, "-train_set", "train_128",
+            "-train_index_file", "train_samples_128.json", "-logdir", d / f"log_{name}",
+            "-store_model_path", d / name, "-iters", iters, "-summary_steps", 5,
+            "-save_steps", 20, *extra]
+
+
+def largest_rel_diff(a: dict, b: dict, steps, key: str = "loss") -> float:
+    return max(abs(a[s][key] - b[s][key]) / abs(a[s][key]) for s in steps)
+
+
+def phase_train_cli(card: str, d: Path, cfg_path: Path) -> dict:
+    """7b-7d: train through the CLI, resume, and serve from the checkpoint."""
+    corpus = write_corpus(d)
+    log(f"[train] corpus: 64 utterances, {corpus['frames']} frames x 512 mels, "
+        f"{corpus['entries']} indexed segments of {corpus['seg']} frames "
+        f"({corpus['entries'] // 128} batches of 128 an epoch); in_test: 3 utterances, 150 segments")
+
+    # 7b: the CLI trains
+    eval_flags = ("-eval_set", "in_test", "-eval_steps", 20)
+    cli_s = run_train_cli(d, train_argv(d, cfg_path, "model", TRAIN_ITERS, *eval_flags))
+    train = read_series(d / "log_model", "init/ae_train")
+    evals = read_series(d / "log_model", "init/ae_eval_in_test")
+    audio = read_series(d / "log_model", "init/conversion_in_test")
+    want_steps = list(range(0, TRAIN_ITERS, 5))
+    check(sorted(train) == want_steps, f"train summaries at steps {sorted(train)}, expected {want_steps}")
+    for s_, row in train.items():
+        check(set(row) == {"loss", "loss_rec", "loss_kl", "grad_norm", "audio_sec_per_sec"},
+              f"train summary keys at step {s_}: {sorted(row)}")
+        check(all(np.isfinite(v) for v in row.values()), f"train summary at step {s_} not finite: {row}")
+    first, last = train[want_steps[0]]["loss_rec"], train[want_steps[-1]]["loss_rec"]
+    check(last < first, f"loss_rec did not fall: {first} at step 0, {last} at step {want_steps[-1]}")
+    check(sorted(evals) == [19, 39], f"eval series at steps {sorted(evals)}, expected [19, 39]")
+    check(all(np.isfinite(v) for row in evals.values() for v in row.values()), "eval series not finite")
+    check(sorted(audio) == [19, 39] and all(r["audio_n_samples"] > 1000 for r in audio.values()),
+          f"audio records {audio}, expected one per eval")
+    check((d / "model.config.yaml").exists(), "model.config.yaml was not written")
+    ckpts = sorted(q.name for q in (d / "model.ckpts").iterdir())
+    check(ckpts == ["step_20.pt", "step_40.pt"], f"checkpoints {ckpts}, expected steps 20 and 40 only")
+    for name in ckpts:
+        state = torch.load(d / "model.ckpts" / name, map_location="cpu", weights_only=True)
+        check(set(state) == {"model", "optimizer", "extra"} and state["extra"]["iteration"] == int(name[5:-3]),
+              f"{name} is torn or of another format")
+    log(f"[train] 7b cli.train -iters {TRAIN_ITERS} at the full examples/config.yaml width on cuda "
+        f"(PyTorch's defaults: cuDNN convolutions in TF32): exit 0, loss_rec {first:.4f} at step 0 -> "
+        f"{last:.4f} at step {want_steps[-1]}, eval loss_rec {evals[19]['loss_rec']:.4f} -> "
+        f"{evals[39]['loss_rec']:.4f}, audio samples of {audio[19]['audio_n_samples']} samples, "
+        f"checkpoints {ckpts}, {cli_s:.1f} s wall clock for the whole process; its own "
+        f"audio_sec_per_sec at the last summary {train[want_steps[-1]]['audio_sec_per_sec']:.0f} "
+        f"(includes the first steps' warm-up, an eval and a save) ({card})")
+
+    # 7c: what two identical runs differ by, then the resumed run
+    twin_s = run_train_cli(d, train_argv(d, cfg_path, "twin", 30))
+    twin = read_series(d / "log_twin", "init/ae_train")
+    common = [s_ for s_ in want_steps if s_ in twin]
+    check(common == list(range(0, 30, 5)), f"twin run's summaries at {sorted(twin)}")
+    noise = largest_rel_diff(train, twin, common)
+    (d / "from20.ckpts").mkdir()
+    shutil.copy(d / "model.ckpts" / "step_20.pt", d / "from20.ckpts" / "step_20.pt")
+    res_s = run_train_cli(d, train_argv(d, cfg_path, "resumed", 10, "--load_model",
+                                        "-load_model_path", d / "from20"))
+    resumed = read_series(d / "log_resumed", "init/ae_train")
+    check(sorted(resumed) == [20, 25], f"resumed run's summaries at {sorted(resumed)}, expected [20, 25]")
+    gap = largest_rel_diff(train, resumed, [20, 25])
+    bound = max(10 * noise, RESUME_FLOOR)
+    check(gap <= bound, f"resumed run's loss differs from the first run's by {gap:.3e} > {bound:.3e}")
+    check(sorted(q.name for q in (d / "resumed.ckpts").iterdir()) == ["step_30.pt"],
+          "the resumed run did not save step 30")
+    log(f"[train] 7c resume from step 20 for 10 steps against the first run at steps 20 and 25 "
+        f"(the summaries both have): largest relative difference of loss {gap:.3e}; two identical "
+        f"runs from scratch differ by {noise:.3e} over steps {common[0]}-{common[-1]}; bound "
+        f"max(10 x that, {RESUME_FLOOR}) = {bound:.3e}; {twin_s:.1f} s and {res_s:.1f} s wall clock ({card})")
+
+    # 7d: serve from the step-40 checkpoint through the one-shot CLI
+    src, tar, out = d / "source.wav", d / "target.wav", d / "converted.wav"
+    make_wav(src, 4.0, 130.0, SEED)
+    make_wav(tar, 4.0, 215.0, SEED + 1)
+    argv = ["-a", d / "attr.pkl", "-c", cfg_path, "-m", d / "model", "-s", src, "-t", tar,
+            "-o", out, "--gl_method", "fused"]
+    launches, serve_s = run_cli("inference", argv)
+    check(launches == 1, f"serving from the checkpoint launched the kernel {launches} times, expected 1")
+    sr, wav = wavfile.read(out)
+    check(sr == SIG.sr and wav.ndim == 1 and len(wav) > 0, f"served wav sr {sr}, shape {wav.shape}")
+    check(bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0, "served wav not finite or silent")
+    inf = Inferencer.from_train_checkpoint(load_config(str(cfg_path)), str(d / "model"),
+                                           str(d / "attr.pkl"), gl_method="fused")
+    check(next(inf.model.parameters()).is_cuda and not inf.model.training,
+          "from_train_checkpoint did not put an eval-mode model on the card")
+    log(f"[train] 7d train -> serve: cli.inference -m <store_model_path> --gl_method fused on the "
+        f"step-{TRAIN_ITERS} checkpoint: {len(wav)} samples, peak {float(np.abs(wav).max()):.4f}, "
+        f"griffin_lim_phases launches {launches}, {serve_s:.1f} s wall clock ({card})")
+    return {"serve_launches": launches}
+
+
+def profile_phases(fns) -> list:
+    """[(device us, kernel launches, the three kernels with most device
+    time)] of each callable, run in order, each inside a torch.profiler
+    trace of its own (device-side events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for fn in fns:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # kernels and copies only: the span the profiler shows on the device
+        # for a host-side annotation (Optimizer.step#...) is not device work
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("Optimizer.step#")]
+        evts.sort(key=lambda e: -e.self_device_time_total)
+        top = ", ".join(
+            f"{e.key.replace('void ', '').split('(')[0].split('<')[0][-48:]} "
+            f"{e.self_device_time_total / 1e3:.2f} ms x {e.count}" for e in evts[:3]
+        )
+        out.append((sum(float(e.self_device_time_total) for e in evts),
+                    sum(int(e.count) for e in evts), top))
+    return out
+
+
+def phase_train_times(card: str, cfg, d: Path) -> None:
+    """7e: records, not gates."""
+    dev = torch.device("cuda")
+    dl = cfg.data_loader
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(dl.batch_size, dl.segment_size, 512, device=dev, generator=gen)
+    variants = (
+        ("f32, TF32 off", cfg, False),
+        ("f32, TF32 on (convolutions and matmuls)", cfg, True),
+        ("compute_dtype=bfloat16, opt_state_dtype=bfloat16",
+         dataclasses.replace(cfg, compute_dtype="bfloat16", opt_state_dtype="bfloat16"), True),
+    )
+    step_ms = {}
+    for label, c, tf32 in variants:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        model = AE(c.model)
+        init_parameters(model, torch.Generator().manual_seed(SEED))
+        model.to(dev)
+        opt = make_optimizer(c.optimizer, model.parameters(), state_dtype=c.opt_state_dtype)
+        step = make_train_step(c, model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(x, 0.01, generator=gen), reps=20, warmup=5)
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        step_ms[label] = ms
+        log(f"[time] train step {label}: {ms:.3f} ms per step (CUDA events, mean of 20 after 5 "
+            f"warm-up steps) = {AUDIO_S_PER_STEP / ms * 1e3:.0f} audio-seconds per second "
+            f"({AUDIO_S_PER_STEP} s of audio a step); peak device memory {peak:.0f} MB ({card})")
+
+        # the step's three parts, each in a profiler trace of its own
+        from adaptive_voice_conversion_tpu_torch.train.step import loss_terms
+        state = {}
+
+        def forward():
+            opt.zero_grad(set_to_none=True)
+            rec, kl, _ = loss_terms(model, c, x, generator=gen)
+            state["loss"] = c.loss.lambda_rec * rec + 0.01 * kl
+
+        parts = profile_phases((forward, lambda: state["loss"].backward(), opt.step))
+        busy_ms = sum(part[0] for part in parts) / 1e3
+        log(f"[time] train step {label}: device busy {busy_ms:.3f} ms of {ms:.3f} ms, idle share "
+            f"{max(0.0, 1 - busy_ms / ms):.3f}; forward {parts[0][0] / 1e3:.3f} ms in {parts[0][1]} "
+            f"launches, backward {parts[1][0] / 1e3:.3f} ms in {parts[1][1]}, optimiser "
+            f"{parts[2][0] / 1e3:.3f} ms in {parts[2][1]}; {sum(part[1] for part in parts)} launches a "
+            f"step (torch.profiler kernel time) ({card})")
+        for name, part in zip(("forward", "backward", "optimiser"), parts):
+            log(f"[time] train step {label}: {name}'s kernels with most device time: {part[2]} ({card})")
+        if label.startswith("f32, TF32 on"):
+            stream_model, stream_opt, stream_step, stream_cfg = model, opt, step, c
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the host's part: gather one batch, pin it, copy it; then the step fed
+    # by the prefetching stream against the step on a resident batch
+    ds = SegmentDataset(str(d / "train_128.pkl"), str(d / "train_samples_128.json"), dl.segment_size)
+    idx = np.random.default_rng(SEED).permutation(len(ds))[: dl.batch_size]
+    gathers, copies = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        b = ds.gather(idx)
+        t1 = time.perf_counter()
+        torch.from_numpy(b).pin_memory().to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        gathers.append((t1 - t0) * 1e3)
+        copies.append((time.perf_counter() - t1) * 1e3)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    batches = device_prefetch(batch_iterator(ds, dl.batch_size, seed=SEED), dev)
+    for _ in range(5):
+        stream_step(next(batches), 0.01, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        stream_step(next(batches), 0.01, generator=gen)
+    torch.cuda.synchronize()
+    streamed = (time.perf_counter() - t0) * 1e3 / 20
+    batches.close()
+    resident = step_ms["f32, TF32 on (convolutions and matmuls)"]
+    log(f"[time] train data stream: host gather of one batch ({b.nbytes / 1e6:.1f} MB) "
+        f"{np.median(gathers):.2f} ms, pin and copy to the card {np.median(copies):.2f} ms (host "
+        f"clock, median of 5); the step fed by device_prefetch {streamed:.3f} ms per step (host "
+        f"clock, 20 steps) against {resident:.3f} ms on a resident batch (f32, TF32 on): the "
+        f"prefetch {'hides' if streamed <= 1.05 * resident else 'does not hide'} the host's part "
+        f"({card})")
+
+    # a checkpoint: the blocking snapshot, then the background write
+    mngr = CheckpointManager(str(d / "timing.ckpts"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mngr.save(1, stream_model.state_dict(), stream_opt.state_dict(), {"iteration": 1, "seed": SEED})
+    snap = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        stream_step(x, 0.01, generator=gen)
+    torch.cuda.synchronize()
+    beside = (time.perf_counter() - t0) * 1e3 / 5
+    t0 = time.perf_counter()
+    mngr.wait()
+    rest = (time.perf_counter() - t0) * 1e3
+    size = (d / "timing.ckpts" / "step_1.pt").stat().st_size / 1e6
+    log(f"[time] train checkpoint: save() holds the loop {snap:.1f} ms (state copied to the host: "
+        f"model, optimiser moments), the file ({size:.1f} MB) is written on a background thread; 5 "
+        f"steps beside the write took {beside:.3f} ms each (host clock) against {resident:.3f} ms "
+        f"alone, and wait() then took {rest:.1f} ms ({card})")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_training(card: str) -> dict:
+    cfg_path = REPO / "examples" / "config.yaml"
+    cfg = load_config(str(cfg_path))
+    phase_train_step_parity(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        out = phase_train_cli(card, d, cfg_path)
+        phase_train_times(card, cfg, d)
+    return out
 
 
 def main() -> None:
@@ -831,8 +1295,9 @@ def main() -> None:
     phase_build()
     kern = phase_kernel()
     main_path = phase_main_path(card)
-    phase_serving(card)
+    serving = phase_serving(card)
     times = phase_kernel_times(card)
+    training = phase_training(card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "griffin_lim_phases",
@@ -840,6 +1305,11 @@ def main() -> None:
         "source": "adaptive_voice_conversion_tpu_torch/csrc/griffin_lim.cu",
         "replaces": "adaptive_voice_conversion_tpu/kernels/griffin_lim.py:159",
         "launches": main_path["launches"],
+        "launches_by_path": {
+            "one-shot CLI": main_path["launches"],
+            "convert_grid CLI": serving["launches"],
+            "train -> serve CLI": training["serve_launches"],
+        },
         "max_abs_err": kern["a"]["max_abs_err"],
         "ms": times["main"]["ms"],
         "plain_ms": times["main"]["plain_ms"],

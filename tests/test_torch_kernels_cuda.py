@@ -1,5 +1,5 @@
 """The fused Griffin-Lim CUDA kernel on the card, against its plain PyTorch
-version. Every test is marked ``cuda`` and skips without a card. The file
+version; and one training step on the card against the CPU. Every test is marked ``cuda`` and skips without a card. The file
 imports nothing of JAX, so that it runs where only the port is installed;
 the tests directory's conftest imports JAX, so there run it with
 
@@ -221,3 +221,56 @@ def test_kernel_rejects_more_rows_than_it_can_index(card):
     with pytest.raises(ValueError, match="rows"):
         tgl.griffin_lim_phases(mag, CFG, n_iter=1)
     assert tgl.griffin_lim_phases.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sn", [False, True])
+def test_train_step_on_card_matches_cpu(card, sn):
+    """One training step at a narrow width on the card against the same
+    step on the CPU, through the comparison chip_smoke.py makes at full
+    width, with its tolerances (losses rtol 1e-4, pre-clip grad_norm rtol
+    1e-3, first moments within 1e-3 of their norm, updated parameters atol
+    1e-5 wherever the gradient exceeds 1e-4 but for one entry in a million,
+    and never further apart than 2 x lr, weight_u atol 1e-5)."""
+    import importlib.util
+    from pathlib import Path
+
+    from adaptive_voice_conversion_tpu_torch.core import config as tcfg
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    )
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = tcfg.TrainConfig(
+        model=tcfg.AEConfig(
+            speaker_encoder=tcfg.SpeakerEncoderConfig(
+                c_in=16, c_h=16, c_out=8, bank_size=4, c_bank=8, n_conv_blocks=2,
+                n_dense_blocks=1, subsample=(1, 2),
+            ),
+            content_encoder=tcfg.ContentEncoderConfig(
+                c_in=16, c_h=16, c_out=8, bank_size=4, c_bank=8, n_conv_blocks=2,
+                subsample=(1, 2),
+            ),
+            decoder=tcfg.DecoderConfig(
+                c_in=8, c_cond=8, c_h=16, c_out=16, n_conv_blocks=2, upsample=(2, 1), sn=sn,
+            ),
+        ),
+        data_loader=tcfg.DataLoaderConfig(segment_size=32, batch_size=8),
+    )
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        result = smoke.train_step_card_vs_cpu(cfg, seed=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert result["n_params"] > 0 and ("worst_u" in result) == sn
+    rel = lambda k: abs(result["card"][k] - result["cpu"][k]) / abs(result["cpu"][k])
+    assert max(rel(k) for k in ("loss", "loss_rec", "loss_kl")) <= smoke.TOL_STEP_LOSS
+    assert rel("grad_norm") <= smoke.TOL_STEP_GRAD_NORM
+    smoke.check_step_parity(result, f"sn={sn}")  # exits on a failure
+    assert result["clear_beyond"] <= smoke.TOL_STEP_CLEAR_SHARE
+    assert result["worst_param"] <= 2 * cfg.optimizer.lr + smoke.TOL_STEP_PARAM
+    assert result["moment_all"] <= smoke.TOL_STEP_MOMENT
+    if sn:
+        assert result["worst_u"] <= smoke.TOL_STEP_U

@@ -214,5 +214,13 @@ def test_init_parameters_is_seeded_and_bounded(tmp_path):
 
 
 def test_spectral_norm_raises():
-    with pytest.raises(NotImplementedError):
-        Decoder(tcfg.DecoderConfig(sn=True))
+    """Decoder(sn=True) constructs (it raised before the training slice);
+    what still raises is a strict load of sn=False weights into it, whose
+    layers hold weight_orig / weight_u / weight_v instead of weight."""
+    plain = Decoder(tcfg.DecoderConfig(sn=False))
+    sn = Decoder(tcfg.DecoderConfig(sn=True))
+    assert "in_conv_layer.weight_orig" in sn.state_dict()
+    assert "in_conv_layer.weight_u" in sn.state_dict()
+    assert "in_conv_layer.weight_v" in sn.state_dict()
+    with pytest.raises(RuntimeError):
+        sn.load_state_dict(plain.state_dict(), strict=True)
