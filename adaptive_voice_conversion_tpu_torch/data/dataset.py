@@ -4,9 +4,11 @@ Consumes the artifact formats the reference produces (so its preprocessing
 output is drop-in): a pickle dict ``{utt_id: (T, n_mels) float32}`` and a
 JSON index of ``[utt_id, t]`` pairs.
 
-All utterances are packed into one contiguous array at load; a whole batch
-of segments is then a single vectorised fancy-index gather, fast enough on
-one host thread, with no worker processes.
+All utterances are packed into one contiguous array at load; a segment is
+then a contiguous range of rows, and a whole batch is gathered by the native
+memcpy gather (data/native.py) on the calling thread, with no worker
+processes. The numpy fancy-index gather stays beside it (``gather_plain``)
+as the reference the tests hold it against.
 
 ``storage_dtype="bfloat16"`` holds the packed array as the bf16 **bit
 pattern** in uint16 (rounded to nearest even with integer arithmetic), the
@@ -21,6 +23,8 @@ import pickle
 from typing import Sequence
 
 import numpy as np
+
+from .native import gather_segments
 
 
 def to_bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -96,7 +100,12 @@ class SegmentDataset:
 
     def gather(self, idx: np.ndarray) -> np.ndarray:
         """Segment batch for index positions ``idx``: (len(idx), seg, n_mels)
-        in the packed array's dtype (uint16 bit patterns for bf16 storage)."""
+        in the packed array's dtype (uint16 bit patterns for bf16 storage),
+        by the native memcpy gather."""
+        return gather_segments(self.packed, self.starts[idx], self.segment_size)
+
+    def gather_plain(self, idx: np.ndarray) -> np.ndarray:
+        """``gather`` by a numpy fancy index: the reference."""
         starts = self.starts[idx]
         rows = starts[:, None] + np.arange(self.segment_size)[None, :]
         return self.packed[rows]

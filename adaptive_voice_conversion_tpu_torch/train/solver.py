@@ -2,22 +2,28 @@
 
 - the step (train/step.py) never waits for the device; metrics are fetched
   only every ``summary_steps``
-- the data path is a seeded resumable cursor (data/loader.py) gathered on a
-  host thread and copied ahead on a side stream
+- ``input_mode`` picks the data path, by the JAX package's rule: ``auto`` is
+  ``device`` when the corpus (in the dtype it would take on the device) fits
+  ``device_data_budget_bytes`` and ``chunked`` above it; ``device_sharded``
+  needs several GPUs and falls back to ``device`` on one
+  - ``device``: the corpus resident on the GPU, batches drawn there, and
+    ``inner_steps`` steps per call (data/device_sampler.py)
+  - ``chunked``: the corpus streamed in fixed-size chunks, the next one
+    crossing while the current one trains (data/chunked.py)
+  - ``host``: a seeded resumable cursor (data/loader.py) gathered on a host
+    thread and copied ahead on a side stream
 - checkpoints are rolling step checkpoints with optimiser state and the
   iteration; resume continues the exact segment sequence and the exact
-  per-step random draws
-
-Only ``input_mode: host`` runs so far. ``auto`` resolves to ``host``;
-``device``, ``device_sharded`` and ``chunked`` raise until the
-device-resident sampler and the chunk streamer are ported (ROADMAP item 9).
+  per-step random draws, in every mode
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -26,16 +32,18 @@ import torch
 
 from ..core.config import TrainConfig, config_to_dict
 from ..core.device import DeviceLike, resolve_device
+from ..data.chunked import ChunkedDeviceStreamer
 from ..data.dataset import SegmentDataset
+from ..data.device_sampler import DeviceResidentDataset
 from ..data.loader import batch_iterator, device_prefetch
 from ..models.ae import AE, count_params
 from ..models.modules import init_parameters
 from .checkpoint import CheckpointManager
 from .logger import Logger
 from .optim import kl_lambda, make_optimizer
-from .step import make_eval_step, make_train_step
+from .step import make_device_data_train_step, make_eval_step, make_train_step, step_seed
 
-UNPORTED_MODES = ("device", "device_sharded", "chunked")
+MODES = ("auto", "device", "device_sharded", "chunked", "host")
 
 
 @dataclass
@@ -66,14 +74,6 @@ class SolverArgs:
     eval_audio_gl_iters: int = 30
 
 
-def step_seed(seed: int, iteration: int) -> int:
-    """The seed of one step's random draws, a pure function of the run's
-    seed and the iteration, so a resumed run draws what the continuous run
-    drew."""
-    ss = np.random.SeedSequence([seed + 1, iteration])
-    return int(ss.generate_state(1, np.uint64)[0])
-
-
 class Solver:
     def __init__(self, config: TrainConfig, args: SolverArgs, device: DeviceLike = None):
         """``device`` defaults to ``cuda`` and raises without a GPU; pass
@@ -87,6 +87,7 @@ class Solver:
         self._eval_ds_cache: dict = {}
         self._eval_fn = None
         self._audio_convert = None
+        self._chunk_repeats_resolved: Optional[int] = None
 
         self._load_data()
         self._build_model()
@@ -98,26 +99,40 @@ class Solver:
 
     def _load_data(self) -> None:
         a, c = self.args, self.config
-        mode = c.input_mode
-        if mode in UNPORTED_MODES:
-            raise NotImplementedError(
-                f"input_mode={mode!r}: the device-resident, sharded and chunked "
-                "data modes are ROADMAP item 9 (slice 5) and are not ported "
-                "yet; use input_mode: host"
-            )
-        if mode == "auto":
-            print(
-                "input_mode=auto -> host (the device-resident sampler is not "
-                "ported yet: every batch is gathered on the host)",
-                flush=True,
-            )
-        self.data_mode = "host"
+        if c.input_mode not in MODES:
+            raise ValueError(f"input_mode={c.input_mode!r}: expected one of {MODES}")
         self.dataset = SegmentDataset(
             os.path.join(a.data_dir, f"{a.train_set}.pkl"),
             os.path.join(a.data_dir, a.train_index_file),
             segment_size=c.data_loader.segment_size,
             storage_dtype=c.data_dtype,
         )
+        dtype = "bfloat16" if "bfloat16" in (c.data_dtype, c.compute_dtype) else "float32"
+        itemsize = 2 if dtype == "bfloat16" else 4
+        wire_bytes = int(self.dataset.packed.size) * itemsize
+        mode = c.input_mode
+        if mode == "auto":
+            # one device: "device_sharded" (the corpus split over several
+            # GPUs' memory) is never the choice
+            mode = "device" if wire_bytes <= c.device_data_budget_bytes else "chunked"
+        if mode == "device_sharded":
+            mode = "device"  # falls back without a data axis of 2 or more
+        self.data_mode = mode
+        self.device_data: Optional[DeviceResidentDataset] = None
+        self.chunked: Optional[ChunkedDeviceStreamer] = None
+        if mode == "device":
+            self.device_data = DeviceResidentDataset(self.dataset, self.device, dtype=dtype)
+        elif mode == "chunked":
+            self.chunked = ChunkedDeviceStreamer(
+                self.dataset,
+                chunk_bytes=c.chunk_bytes or c.device_data_budget_bytes // 3,
+                batch_size=c.data_loader.batch_size,
+                inner_steps=c.inner_steps,
+                seed=a.seed,
+                # "auto" is measured at training start (_resolve_chunk_repeats)
+                repeats=1 if c.chunk_repeats == "auto" else c.chunk_repeats,
+                device=self.device,
+            )
 
     def _build_model(self) -> None:
         c = self.config
@@ -126,12 +141,32 @@ class Solver:
         self.model = AE(c.model)
         init_parameters(self.model, gen)
         self.model.to(self.device)
-        self.optimizer = make_optimizer(
-            c.optimizer, self.model.parameters(),
-            state_dtype=c.opt_state_dtype, fused=c.opt_fused,
-        )
+        self.optimizer = self._make_optimizer(self.model)
         self.step_fn = make_train_step(c, self.model, self.optimizer)
+        self._multi_steps: dict = {}
         self.n_params = count_params(self.model)
+
+    def _make_optimizer(self, model: AE):
+        c = self.config
+        return make_optimizer(
+            c.optimizer, model.parameters(), state_dtype=c.opt_state_dtype, fused=c.opt_fused
+        )
+
+    def _make_multi_step(self, inner_steps: int, model=None, optimizer=None):
+        return make_device_data_train_step(
+            self.config,
+            self.model if model is None else model,
+            self.optimizer if optimizer is None else optimizer,
+            inner_steps=inner_steps,
+            padded_starts=self.data_mode == "chunked",
+        )
+
+    def _multi_step(self, k: int):
+        """The multi-step function for calls of ``k`` steps: ``inner_steps``,
+        or the remainder at the end of a run or a chunk's visit."""
+        if k not in self._multi_steps:
+            self._multi_steps[k] = self._make_multi_step(k)
+        return self._multi_steps[k]
 
     def _save_config(self) -> None:
         import yaml
@@ -150,6 +185,9 @@ class Solver:
         if self._mngr is None:
             self._mngr = CheckpointManager(self.checkpoint_dir(self.args.store_model_path))
         extra = {"iteration": iteration + 1, "seed": self.args.seed}
+        if self._chunk_repeats_resolved is not None:
+            # the visit schedule depends on it: a resumed run replays it
+            extra["chunk_repeats"] = int(self._chunk_repeats_resolved)
         self._mngr.save(
             iteration + 1, self.model.state_dict(), self.optimizer.state_dict(), extra
         )
@@ -164,6 +202,8 @@ class Solver:
         self.model.load_state_dict(model_state, strict=True)
         self.optimizer.load_state_dict(opt_state)
         self.iteration = int(extra["iteration"])
+        if "chunk_repeats" in extra:
+            self._chunk_repeats_resolved = int(extra["chunk_repeats"])
         mngr.close()
 
     # -- evaluation -------------------------------------------------------
@@ -286,7 +326,151 @@ class Solver:
     # -- training ---------------------------------------------------------
 
     def train(self, n_iterations: int, log_every_print: bool = True) -> dict:
+        if self.data_mode == "device":
+            return self._train_device(n_iterations, log_every_print)
+        if self.data_mode == "chunked":
+            return self._train_chunked(n_iterations, log_every_print)
         return self._train_host(n_iterations, log_every_print)
+
+    def _audio_s_per_batch(self) -> float:
+        c = self.config
+        return (
+            c.data_loader.batch_size * c.data_loader.segment_size * c.signal.hop_length / c.signal.sr
+        )
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _after_multi_step(
+        self, ms: torch.Tensor, it: int, k: int, end: int, steps_done: int, t_start: float,
+        log_every_print: bool,
+    ) -> Optional[dict]:
+        """Summary, save and eval for a call that ran steps [it - k, it): each
+        lands on the first call boundary at or after its cadence's multiple
+        (the JAX package's arithmetic). Returns the summary row if one was
+        logged."""
+        a = self.args
+        m = None
+        if (it - 1) // a.summary_steps != (it - k - 1) // a.summary_steps or it == end:
+            loss, loss_rec, loss_kl, grad_norm = ms[-1].tolist()
+            m = {
+                "loss": loss, "loss_rec": loss_rec, "loss_kl": loss_kl, "grad_norm": grad_norm,
+                "audio_sec_per_sec": steps_done * self._audio_s_per_batch()
+                / max(time.time() - t_start, 1e-9),
+            }
+            self.logger.scalars_summary(f"{a.tag}/ae_train", m, it - 1)
+            if log_every_print:
+                print(
+                    f"AE:[{it}/{end}], loss_rec={m['loss_rec']:.2f}, "
+                    f"loss_kl={m['loss_kl']:.2f}, {m['audio_sec_per_sec']:.0f} audio-s/s",
+                    end="\r",
+                )
+        if it // a.save_steps != (it - k) // a.save_steps or it == end:
+            self.save_model(it - 1)
+        if a.eval_steps and (it // a.eval_steps != (it - k) // a.eval_steps or it == end):
+            self._eval_hook(it - 1)
+        return m
+
+    def _finish(self, end: int) -> None:
+        self.iteration = end
+        if self._mngr is not None:
+            self._mngr.wait()
+        self._sync()
+
+    def _train_device(self, n_iterations: int, log_every_print: bool) -> dict:
+        """Device-resident corpus: ``inner_steps`` steps per call, each
+        drawing its batch on the device; summaries, saves and evals land on
+        call boundaries."""
+        K = self.config.inner_steps
+        packed, starts = self.device_data.packed, self.device_data.starts
+        t_start = time.time()
+        it, end = self.iteration, self.iteration + n_iterations
+        steps_done = 0
+        last = None
+        while it < end:
+            k = min(K, end - it)
+            ms = self._multi_step(k)(packed, starts, self.args.seed, it)
+            it += k
+            steps_done += k
+            last = self._after_multi_step(ms, it, k, end, steps_done, t_start, log_every_print) or last
+        self._finish(end)
+        return last or {}
+
+    def _resolve_chunk_repeats(self) -> None:
+        """``chunk_repeats: auto``: time a chunk's transfer and one
+        multi-step call, then take ``choose_repeats`` of the two. The probe
+        runs on copies of the model and the optimiser state, so training
+        state is untouched; the chosen value is kept in every checkpoint and
+        a resumed run replays it (the visit plan depends on it) instead of
+        measuring again."""
+        c = self.config
+        if self.chunked is None or c.chunk_repeats != "auto":
+            return
+        if self._chunk_repeats_resolved is not None:
+            self.chunked.set_repeats(self._chunk_repeats_resolved)
+            return
+        # the first transfer allocates pinned and device memory: time the second
+        self.chunked.put_chunk(0).acquire()
+        self._sync()
+        t0 = time.perf_counter()
+        chunk = self.chunked.put_chunk(0).acquire()
+        self._sync()
+        bw = self.chunked.chunk_nbytes() / max(time.perf_counter() - t0, 1e-9)
+        model = copy.deepcopy(self.model)
+        opt = self._make_optimizer(model)
+        opt.load_state_dict(copy.deepcopy(self.optimizer.state_dict()))
+        probe = self._make_multi_step(c.inner_steps, model, opt)
+        args = (chunk.packed, chunk.starts, chunk.n_starts, self.args.seed, 0)
+        probe(*args)  # warm-up: cuDNN's algorithm search, first allocations
+        self._sync()
+        t0 = time.perf_counter()
+        probe(*args)
+        self._sync()
+        t_step = (time.perf_counter() - t0) / c.inner_steps
+        del model, opt, probe
+        r = self.chunked.choose_repeats(t_step, bw)
+        self._chunk_repeats_resolved = r
+        self.chunked.set_repeats(r)
+        print(
+            f"chunk_repeats=auto -> {r} (H2D {bw / 1e6:.1f} MB/s, step "
+            f"{t_step * 1e3:.2f} ms, need {self.chunked.required_bandwidth(t_step) / 1e6:.1f} MB/s)",
+            flush=True,
+        )
+
+    def _train_chunked(self, n_iterations: int, log_every_print: bool) -> dict:
+        """Corpora over the device budget: the chunk schedule of
+        data/chunked.py, the next chunk's transfer started on a thread before
+        the current chunk's steps are queued, so the two overlap."""
+        self._resolve_chunk_repeats()
+        K = self.config.inner_steps
+        visits = list(self.chunked.schedule(self.iteration, n_iterations))
+        t_start = time.time()
+        end = self.iteration + n_iterations
+        steps_done = 0
+        last = None
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            chunk = self.chunked.put_chunk(visits[0].chunk_id) if visits else None
+            for vi, v in enumerate(visits):
+                nxt = visits[vi + 1] if vi + 1 < len(visits) else None
+                if nxt is not None and nxt.chunk_id != v.chunk_id:
+                    next_chunk = pool.submit(self.chunked.put_chunk, nxt.chunk_id)
+                else:
+                    next_chunk = None
+                packed, starts, n_starts = chunk.acquire()[:3]
+                it, endv = v.it0, v.it0 + v.k
+                while it < endv:
+                    k = min(K, endv - it)
+                    ms = self._multi_step(k)(packed, starts, n_starts, self.args.seed, it)
+                    it += k
+                    steps_done += k
+                    last = self._after_multi_step(
+                        ms, it, k, end, steps_done, t_start, log_every_print
+                    ) or last
+                if next_chunk is not None:
+                    chunk = next_chunk.result()
+        self._finish(end)
+        return last or {}
 
     def _train_host(self, n_iterations: int, log_every_print: bool = True) -> dict:
         c, a = self.config, self.args
@@ -302,12 +486,7 @@ class Solver:
             self.device,
         )
         gen = torch.Generator(device=self.device)
-        audio_s_per_batch = (
-            c.data_loader.batch_size
-            * c.data_loader.segment_size
-            * c.signal.hop_length
-            / c.signal.sr
-        )
+        audio_s_per_batch = self._audio_s_per_batch()
         end = self.iteration + n_iterations
         t_start = time.time()
         metrics: dict = {}
@@ -337,11 +516,7 @@ class Solver:
                     self._eval_hook(it)
         finally:
             batches.close()
-        self.iteration = end
-        if self._mngr is not None:
-            self._mngr.wait()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._finish(end)
         return {
             **{k: float(v) for k, v in metrics.items()},
             "audio_sec_per_sec": steps_done * audio_s_per_batch

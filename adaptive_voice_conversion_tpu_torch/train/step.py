@@ -7,18 +7,23 @@ Adam / AMSGrad; train/optim.py). With spectral norm the stored ``u`` of
 every decoder layer advances once per step from the weights the step
 started with, before the optimiser changes them. The metrics come back as
 tensors on the model's device: nothing in the step waits for the device.
+
+``make_device_data_train_step`` runs several such steps per call on a
+device-resident corpus, drawing each step's batch on the device.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.config import TrainConfig
+from ..data.device_sampler import draw_indices, gather_rows
 from ..models.ae import AE
 from ..models.modules import spectral_norm_update
-from .optim import TorchAdam
+from .optim import TorchAdam, kl_lambda
 
 
 def from_wire_format(x: torch.Tensor) -> torch.Tensor:
@@ -75,6 +80,77 @@ def make_train_step(
         }
 
     return step
+
+
+def step_seed(seed: int, iteration: int) -> int:
+    """The seed of one step's random draws, a pure function of the run's
+    seed and the iteration, so a resumed run draws what the continuous run
+    drew."""
+    ss = np.random.SeedSequence([seed + 1, iteration])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def make_device_data_train_step(
+    cfg: TrainConfig,
+    model: AE,
+    optimizer: TorchAdam,
+    inner_steps: int = 10,
+    padded_starts: bool = False,
+    sharded_data: bool = False,
+) -> Callable[..., torch.Tensor]:
+    """Multi-step trainer over a device-resident corpus
+    (data/device_sampler.py): one call runs ``inner_steps`` iterations of
+    sample -> forward -> backward -> update, each the step ``make_train_step``
+    builds, with the batch drawn and gathered on the device.
+
+        multi_step(packed, starts, seed, it0) -> (inner_steps, 4) tensor
+            [loss, loss_rec, loss_kl, grad_norm] per step, on the device
+
+    ``padded_starts=True``: the function takes ``n_starts`` (a device int64
+    scalar) after ``starts``, the number of valid entries of a start list
+    padded to a fixed length, so every chunk of data/chunked.py shares it.
+    ``packed`` may be the uint16 wire format of bf16 (viewed, not converted).
+
+    Random draws: step ``i`` seeds one generator on the device with
+    ``step_seed(seed, it0 + i)``. The batch's positions are its first draw
+    (``draw_indices``: ``batch_size`` 62-bit integers), and the VAE's ``eps``
+    and any dropout masks follow in the same stream; the generator's state
+    advances past every draw, so the two never share random bits. A
+    resumed run repeats each step's draws, whatever call the step falls in.
+    (The JAX package splits ``fold_in(base_key, it0 + i)`` into an index key
+    and a step key instead; its streams cannot be matched in torch.)
+
+    No host synchronisation inside the loop: the seeds and ``lambda_kl`` are
+    host arithmetic on ``it0``, shapes are fixed, and the metrics stay on the
+    device until the caller reads them.
+    """
+    if sharded_data:
+        raise NotImplementedError(
+            "sharded_data=True: the corpus sharded over several GPUs "
+            "(data/sharded.py) is ROADMAP item 10 (slice 6) and is not ported yet"
+        )
+    step = make_train_step(cfg, model, optimizer)
+    b = cfg.data_loader.batch_size
+    seg = cfg.data_loader.segment_size
+    device = next(model.parameters()).device
+
+    def run(packed, starts, n_starts, seed, it0):
+        packed = from_wire_format(packed)
+        gen = torch.Generator(device=device)
+        rows = []
+        for i in range(inner_steps):
+            it = it0 + i
+            gen.manual_seed(step_seed(seed, it))
+            sel = draw_indices(starts.shape[0], b, gen, n_starts)
+            x = gather_rows(packed, starts, sel, seg)
+            lam = kl_lambda(it, cfg.loss.lambda_kl, cfg.annealing_iters)
+            m = step(x, lam, generator=gen)
+            rows.append(torch.stack([m["loss"], m["loss_rec"], m["loss_kl"], m["grad_norm"]]))
+        return torch.stack(rows)
+
+    if padded_starts:
+        return run
+    return lambda packed, starts, seed, it0: run(packed, starts, None, seed, it0)
 
 
 def make_eval_step(cfg: TrainConfig, model: AE) -> Callable[..., Dict[str, torch.Tensor]]:

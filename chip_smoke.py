@@ -39,7 +39,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      series, bounded by what two identical runs differ by; (d) the one-shot
      conversion CLI with --gl_method fused on the trained checkpoint, one
      kernel launch; (e) the step's times in f32 with TF32 off and on and in
-     bf16, its split, the data stream's and a checkpoint's cost.
+     bf16, its split, the data stream's and a checkpoint's cost. 7b-7c pin
+     ``input_mode: host``, so they keep testing the host stream;
+  8. the training data modes at the same width, on the phase-7 corpus: (a)
+     the device-resident corpus against the host's packed array bit for bit
+     (f32 and bf16), the on-card gather against the host gather, bounded
+     draws; (b) the multi-step (10 steps in one call, f32, TF32 off, cuDNN
+     deterministic) against 10 host steps on the card fed the same batches
+     and eps; (c) one
+     multi-step call under torch.cuda.set_sync_debug_mode("error"); (d) the
+     training CLI in device mode (40 steps, then a resume from step 20) and
+     in chunked mode (5 chunks, chunk_repeats auto, then a resume that must
+     replay it), and the one-shot CLI on the device-mode checkpoint, one
+     kernel launch; (e) the multi-step's times in turns with host steps on
+     a resident batch, beside 7e's, and a 1 GB
+     corpus streamed in 256 MiB chunks: the link's rate and the step with
+     and without a chunk in flight.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
@@ -59,14 +74,23 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import yaml
 from scipy.io import wavfile
 
-from adaptive_voice_conversion_tpu_torch.core.config import SignalConfig, load_config
-from adaptive_voice_conversion_tpu_torch.data.dataset import SegmentDataset
+from adaptive_voice_conversion_tpu_torch.core.config import SignalConfig, config_to_dict, load_config
+from adaptive_voice_conversion_tpu_torch.data.chunked import ChunkedDeviceStreamer
+from adaptive_voice_conversion_tpu_torch.data.dataset import SegmentDataset, to_bf16_bits
+from adaptive_voice_conversion_tpu_torch.data.device_sampler import (
+    DeviceResidentDataset,
+    draw_indices,
+    gather_rows,
+)
 from adaptive_voice_conversion_tpu_torch.data.loader import batch_iterator, device_prefetch
 from adaptive_voice_conversion_tpu_torch.dsp.audio import save_wav
 from adaptive_voice_conversion_tpu_torch.dsp.features import get_spectrograms
@@ -95,7 +119,11 @@ from adaptive_voice_conversion_tpu_torch.models.weights import (
 )
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
 from adaptive_voice_conversion_tpu_torch.train.optim import kl_lambda, make_optimizer
-from adaptive_voice_conversion_tpu_torch.train.step import make_train_step
+from adaptive_voice_conversion_tpu_torch.train.step import (
+    make_device_data_train_step,
+    make_train_step,
+    step_seed,
+)
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -1138,7 +1166,7 @@ def phase_train_cli(card: str, d: Path, cfg_path: Path) -> dict:
     log(f"[train] 7d train -> serve: cli.inference -m <store_model_path> --gl_method fused on the "
         f"step-{TRAIN_ITERS} checkpoint: {len(wav)} samples, peak {float(np.abs(wav).max()):.4f}, "
         f"griffin_lim_phases launches {launches}, {serve_s:.1f} s wall clock ({card})")
-    return {"serve_launches": launches}
+    return {"serve_launches": launches, "resume_bound": bound}
 
 
 def profile_phases(fns) -> list:
@@ -1170,8 +1198,9 @@ def profile_phases(fns) -> list:
     return out
 
 
-def phase_train_times(card: str, cfg, d: Path) -> None:
-    """7e: records, not gates."""
+def phase_train_times(card: str, cfg, d: Path) -> dict:
+    """7e: records, not gates. Returns the resident and streamed step ms
+    (f32, TF32 on)."""
     dev = torch.device("cuda")
     dl = cfg.data_loader
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1276,16 +1305,349 @@ def phase_train_times(card: str, cfg, d: Path) -> None:
         f"alone, and wait() then took {rest:.1f} ms ({card})")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    return {"resident_ms": resident, "streamed_ms": streamed}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the training data modes
+# ---------------------------------------------------------------------------
+
+# phase 8d's chunked run: 8,000,000 bytes of f32 rows of 512 mels = 3,906 rows
+# a chunk, so the 19,453-frame corpus is 5 chunks
+CHUNK_BYTES_CLI = 8_000_000
+# phase 8e's large corpus: 500,000 frames x 512 mels f32 (1.024 GB) in
+# 256 MiB chunks
+BIG_FRAMES = 500_000
+BIG_CHUNK_BYTES = 256 * 2**20
+
+
+def phase_residency(card: str, ds: SegmentDataset, d: Path) -> None:
+    """8a: the device-resident corpus bit for bit, the on-card gather
+    against the host gather, bounded draws."""
+    dev = torch.device("cuda")
+    bf16_ds = SegmentDataset(str(d / "train_128.pkl"), str(d / "train_samples_128.json"),
+                             ds.segment_size, storage_dtype="bfloat16")
+    cases = (("f32 storage, f32 on the card", ds, "float32", ds.packed),
+             ("f32 storage, bf16 on the card", ds, "bfloat16", to_bf16_bits(ds.packed)),
+             ("bf16 storage, bf16 on the card", bf16_ds, "bfloat16", bf16_ds.packed))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, src, dtype, want in cases:
+        res = DeviceResidentDataset(src, dev, dtype=dtype)
+        got = res.packed.cpu()
+        got = got.view(torch.int16).numpy().view(np.uint16) if dtype == "bfloat16" else got.numpy()
+        check(np.array_equal(got, want), f"8a {label}: the resident corpus differs from the host's")
+        check(np.array_equal(res.starts.cpu().numpy(), src.starts), f"8a {label}: starts differ")
+        sel = draw_indices(len(src), 128, gen)
+        x = gather_rows(res.packed, res.starts, sel, src.segment_size).cpu()
+        x = x.view(torch.int16).numpy().view(np.uint16) if dtype == "bfloat16" else x.numpy()
+        host = src.gather(sel.cpu().numpy())
+        host = to_bf16_bits(host) if dtype == "bfloat16" and host.dtype == np.float32 else host
+        check(np.array_equal(x, host), f"8a {label}: gather_rows on the card differs from the host gather")
+    n_valid = len(ds) // 3
+    draws = draw_indices(len(ds), 10_000, gen, torch.tensor(n_valid, device=dev)).cpu().numpy()
+    check(draws.min() >= 0 and draws.max() < n_valid,
+          f"8a: draws bounded by n_valid {n_valid} reach [{draws.min()}, {draws.max()}]")
+    log(f"[data] 8a DeviceResidentDataset on the card equals the host's packed array bit for bit "
+        f"({ds.packed.shape[0]} x {ds.n_mels}: f32, f32 rounded to bf16, bf16 storage); gather_rows "
+        f"of 128 segments on the card equals SegmentDataset.gather (the native memcpy gather) for "
+        f"the same positions; 10,000 draws bounded by n_valid {n_valid} of {len(ds)} stay in "
+        f"[{draws.min()}, {draws.max()}], {len(np.unique(draws))} distinct")
+
+
+def fresh_model(cfg, dev):
+    model = AE(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.to(dev)
+    return model, make_optimizer(cfg.optimizer, model.parameters(), state_dtype=cfg.opt_state_dtype)
+
+
+def phase_multi_step(card: str, cfg, ds: SegmentDataset) -> tuple:
+    """8b and 8c, f32 with TF32 off: the multi-step against host steps fed
+    the same batches and eps, then one call with host syncs made errors.
+
+    cuDNN is held to its deterministic algorithms for 8b: at TF32 off its
+    default backward algorithms sum in another order from run to run, and
+    from the second step on Adam turns every near-zero gradient into lr x
+    its sign, so two runs of the same steps part (on an H100 without it the
+    losses were 6.8e-3 apart at the third step)."""
+    dev = torch.device("cuda")
+    K = 10
+    res = DeviceResidentDataset(ds, dev, dtype="float32")
+    model, opt = fresh_model(cfg, dev)
+    host_model = copy.deepcopy(model)
+    host_opt = make_optimizer(cfg.optimizer, host_model.parameters(), state_dtype=cfg.opt_state_dtype)
+    multi = make_device_data_train_step(cfg, model, opt, inner_steps=K)
+    step = make_train_step(cfg, host_model, host_opt)
+    dl, ce = cfg.data_loader, cfg.model.content_encoder
+    t_code = dl.segment_size // int(np.prod(ce.subsample))
+    gen = torch.Generator(device=dev)
+    rows = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        ms = multi(res.packed, res.starts, SEED, 0).cpu().numpy()
+        multi_s = time.perf_counter() - t0
+        for i in range(K):
+            # the draws the multi-step made: the positions, then eps as the
+            # model draws it, (B, c_out, T') before its transpose
+            gen.manual_seed(step_seed(SEED, i))
+            sel = draw_indices(len(ds), dl.batch_size, gen)
+            eps = torch.randn((dl.batch_size, ce.c_out, t_code), generator=gen, device=dev).transpose(1, 2)
+            x = torch.from_numpy(ds.gather(sel.cpu().numpy())).to(dev)
+            m = step(x, kl_lambda(i, cfg.loss.lambda_kl, cfg.annealing_iters), eps=eps)
+            rows.append([float(m[k]) for k in ("loss", "loss_rec", "loss_kl", "grad_norm")])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    host = np.array(rows)
+    rel = np.abs(ms - host) / np.abs(host)
+    worst_loss, worst_gn = float(rel[:, :3].max()), float(rel[:, 3].max())
+    log(f"[data] 8b relative difference per step, loss / grad_norm: "
+        + ", ".join(f"{a:.1e}/{b:.1e}" for a, b in zip(rel[:, :3].max(axis=1), rel[:, 3])))
+    check(bool(np.isfinite(ms).all()), "8b: the multi-step's metrics are not finite")
+    check(worst_loss <= TOL_STEP_LOSS,
+          f"8b: the multi-step's losses differ from the host steps' by {worst_loss:.3e} > {TOL_STEP_LOSS}")
+    check(worst_gn <= TOL_STEP_GRAD_NORM,
+          f"8b: the multi-step's grad_norm differs from the host steps' by {worst_gn:.3e} > {TOL_STEP_GRAD_NORM}")
+    log(f"[data] 8b make_device_data_train_step inner_steps={K} on the card (f32, TF32 off, cuDNN "
+        f"deterministic, batch {dl.batch_size} x {dl.segment_size} x {ce.c_in} drawn on the card from "
+        f"the {len(ds)}-segment corpus) against {K} host steps on the card fed the host gather of the "
+        f"same positions and the same eps: largest relative difference of the losses {worst_loss:.3e} "
+        f"(tol {TOL_STEP_LOSS}), of grad_norm {worst_gn:.3e} (tol {TOL_STEP_GRAD_NORM}); loss_rec "
+        f"{ms[0, 1]:.4f} -> {ms[-1, 1]:.4f}; the call took {multi_s:.2f} s")
+
+    # 8c: no host sync inside one call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = multi(res.packed, res.starts, SEED, K)
+    except RuntimeError as exc:
+        fail(f"8c: a multi-step call synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "8c: the multi-step's metrics are not finite")
+    log(f"[data] 8c one multi-step call of {K} steps under torch.cuda.set_sync_debug_mode('error'): "
+        "no host synchronisation")
+    return model, opt, res
+
+
+def run_clis(runs) -> list:
+    """Start every (label, argv) training CLI at once (they share the card),
+    wait for all; returns (stdout, wall seconds) of each."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "adaptive_voice_conversion_tpu_torch.cli.train", *map(str, argv)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for _, argv in runs]
+    out = []
+    try:
+        for (label, _), proc in zip(runs, procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"cli.train {label} failed:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+            out.append((stdout, time.perf_counter() - t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    return out
+
+
+def phase_mode_clis(card: str, d: Path, ds: SegmentDataset, resume_bound: float) -> dict:
+    """8d: the training CLI in device and chunked mode, resumed, and the
+    one-shot CLI on the device-mode checkpoint."""
+    dev_cfg = config_copy(d, "config_device.yaml", input_mode="device")
+    chk_cfg = config_copy(d, "config_chunked.yaml", input_mode="chunked",
+                          chunk_bytes=CHUNK_BYTES_CLI, chunk_repeats="auto")
+    eval_flags = ("-eval_set", "in_test", "-eval_steps", 20)
+    (_, dev_s), (chk_out, chk_s) = run_clis([
+        ("device", train_argv(d, dev_cfg, "dev", TRAIN_ITERS, *eval_flags)),
+        ("chunked", train_argv(d, chk_cfg, "chk", 20, "-save_steps", 10)),
+    ])
+    train = read_series(d / "log_dev", "init/ae_train")
+    evals = read_series(d / "log_dev", "init/ae_eval_in_test")
+    check(sorted(train) == [9, 19, 29, 39], f"8d device mode: summaries at {sorted(train)}, expected [9, 19, 29, 39]")
+    check(all(np.isfinite(v) for row in train.values() for v in row.values()), "8d device mode: summaries not finite")
+    check(sorted(evals) == [19, 39], f"8d device mode: evals at {sorted(evals)}, expected [19, 39]")
+    ckpts = sorted(q.name for q in (d / "dev.ckpts").iterdir())
+    check(ckpts == ["step_20.pt", "step_40.pt"], f"8d device mode: checkpoints {ckpts}")
+    check(train[39]["loss_rec"] < train[9]["loss_rec"],
+          f"8d device mode: loss_rec did not fall: {train[9]['loss_rec']} -> {train[39]['loss_rec']}")
+    chk_train = read_series(d / "log_chk", "init/ae_train")
+    check(sorted(chk_train) == [9, 19], f"8d chunked mode: summaries at {sorted(chk_train)}, expected [9, 19]")
+    resolved = [ln for ln in chk_out.splitlines() if ln.startswith("chunk_repeats=auto ->")]
+    check(len(resolved) == 1, f"8d chunked mode: no chunk_repeats resolution printed:\n{chk_out[-2000:]}")
+    repeats = int(resolved[0].split("->")[1].split()[0])
+    extra = torch.load(d / "chk.ckpts" / "step_20.pt", map_location="cpu", weights_only=True)["extra"]
+    check(extra.get("chunk_repeats") == repeats, f"8d chunked mode: checkpoint extra {extra}, resolved {repeats}")
+    plan = ChunkedDeviceStreamer(ds, CHUNK_BYTES_CLI, 128, inner_steps=10, seed=SEED)
+    check(plan.n_chunks == 5, f"8d chunked mode: {plan.n_chunks} chunks of {plan.R} rows, expected 5")
+
+    (d / "dev20.ckpts").mkdir()
+    shutil.copy(d / "dev.ckpts" / "step_20.pt", d / "dev20.ckpts" / "step_20.pt")
+    src, tar, out = d / "source.wav", d / "target.wav", d / "converted_dev.wav"
+    serve_argv = ["-a", d / "attr.pkl", "-c", dev_cfg, "-m", d / "dev", "-s", src, "-t", tar,
+                  "-o", out, "--gl_method", "fused"]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        serving = pool.submit(run_cli, "inference", serve_argv)
+        (_, res_s), (chk2_out, chk2_s) = run_clis([
+            ("device resumed", train_argv(d, dev_cfg, "dev_res", 20, "--load_model",
+                                          "-load_model_path", d / "dev20")),
+            ("chunked resumed", train_argv(d, chk_cfg, "chk_res", 10, "--load_model",
+                                           "-load_model_path", d / "chk", "-save_steps", 10)),
+        ])
+        launches, serve_s = serving.result()
+    resumed = read_series(d / "log_dev_res", "init/ae_train")
+    check(sorted(resumed) == [29, 39], f"8d device mode resumed: summaries at {sorted(resumed)}")
+    gap = largest_rel_diff(train, resumed, [29, 39])
+    check(gap <= resume_bound, f"8d device mode resumed: loss differs by {gap:.3e} > {resume_bound:.3e}")
+    check(not any(ln.startswith("chunk_repeats=auto ->") for ln in chk2_out.splitlines()),
+          "8d chunked mode resumed: chunk_repeats was measured again, not replayed")
+    extra2 = torch.load(d / "chk_res.ckpts" / "step_30.pt", map_location="cpu", weights_only=True)["extra"]
+    check(extra2.get("chunk_repeats") == repeats, f"8d chunked resumed: checkpoint extra {extra2}")
+    check(launches == 1, f"8d serving the device-mode checkpoint launched the kernel {launches} times, expected 1")
+    sr, wav = wavfile.read(out)
+    check(sr == SIG.sr and wav.ndim == 1 and len(wav) > 0 and bool(np.isfinite(wav).all()),
+          f"8d served wav sr {sr}, shape {wav.shape} or not finite")
+    log(f"[data] 8d cli.train input_mode device, {TRAIN_ITERS} steps: summaries at {sorted(train)}, "
+        f"loss_rec {train[9]['loss_rec']:.4f} -> {train[39]['loss_rec']:.4f}, evals at {sorted(evals)}, "
+        f"checkpoints {ckpts}; resumed from step 20: largest relative difference of loss at 29, 39 "
+        f"{gap:.3e} (bound {resume_bound:.3e}, 7c's); {dev_s:.1f} s and {res_s:.1f} s wall clock "
+        f"(run beside the chunked runs) ({card})")
+    log(f"[data] 8d cli.train input_mode chunked, chunk_bytes {CHUNK_BYTES_CLI}: {plan.n_chunks} chunks "
+        f"of R = {plan.R} rows, dropped_segments {plan.dropped_segments} of {len(ds)} "
+        f"(straddling a chunk edge), epoch {plan.epoch_steps} steps; chunk_repeats auto resolved to "
+        f"{repeats} ({resolved[0]}), kept in the checkpoint and replayed by the resumed run without "
+        f"measuring; summaries at {sorted(chk_train)}; {chk_s:.1f} s and {chk2_s:.1f} s wall clock ({card})")
+    log(f"[data] 8d train (device mode) -> serve: cli.inference -m <store_model_path> --gl_method fused "
+        f"on the step-{TRAIN_ITERS} checkpoint: {len(wav)} samples, griffin_lim_phases launches "
+        f"{launches}, {serve_s:.1f} s wall clock ({card})")
+    return {"device_serve_launches": launches, "chunk_repeats": repeats}
+
+
+def stream_ms(fn) -> float:
+    """Host-clock ms of fn() to the end of the compute stream's work (a
+    chunk copy on the side stream is not waited for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.current_stream().synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_mode_times(card: str, cfg, ds: SegmentDataset, model, opt, res, seven: dict) -> None:
+    """8e: records, not gates, at TF32 on (as cli.train runs)."""
+    dev = torch.device("cuda")
+    K = 10
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        multi = make_device_data_train_step(cfg, model, opt, inner_steps=K)
+        call = lambda: multi(res.packed, res.starts, SEED, 0)
+        # the host step on one resident batch, timed the same way in turns
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        sel = draw_indices(len(ds), cfg.data_loader.batch_size, gen)
+        x = gather_rows(res.packed, res.starts, sel, ds.segment_size)
+        host_step = make_train_step(cfg, model, opt)
+        resident = lambda: [host_step(x, 0.01, generator=gen) for _ in range(K)]
+        call()
+        resident()
+        torch.cuda.reset_peak_memory_stats()
+        runs, res_runs = [], []
+        for _ in range(3):
+            runs.append(stream_ms(call) / K)
+            res_runs.append(stream_ms(resident) / K)
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        per_step = float(np.median(runs))
+        busy_us, launches, top = profile_phases([call])[0]
+        busy = busy_us / 1e3 / K
+        log(f"[time] data multi-step (device mode, {K} steps a call, f32, TF32 on): "
+            f"{', '.join(f'{r:.3f}' for r in runs)} ms per step, in turns with {K} host steps on one "
+            f"resident batch: {', '.join(f'{r:.3f}' for r in res_runs)} ms per step (host clock to "
+            f"the end of each call; medians {per_step:.3f} and {np.median(res_runs):.3f}, "
+            f"{per_step / np.median(res_runs):.3f}x) = {AUDIO_S_PER_STEP / per_step * 1e3:.0f} "
+            f"audio-seconds per second; 7e's step {seven['resident_ms']:.3f} ms on a resident batch "
+            f"(CUDA events) and {seven['streamed_ms']:.3f} ms fed by the host stream; device busy "
+            f"{busy:.3f} ms a step, idle share {max(0.0, 1 - busy / per_step):.3f}, "
+            f"{launches / K:.0f} launches a step (torch.profiler kernel time over one call); peak "
+            f"device memory {peak:.0f} MB ({card})")
+        log(f"[time] data multi-step: kernels with most device time in one call: {top} ({card})")
+
+        # a corpus over 1 GB in 256 MiB chunks: the phase-7 corpus repeated
+        big = np.resize(ds.packed, (BIG_FRAMES, ds.n_mels))
+        big_ds = SimpleNamespace(packed=big, starts=np.arange(0, BIG_FRAMES - 128, 64),
+                                 segment_size=ds.segment_size)
+        st = ChunkedDeviceStreamer(big_ds, BIG_CHUNK_BYTES, 128, inner_steps=K, seed=SEED, device=dev)
+        nbytes = st.chunk_nbytes()
+        puts = []
+        for c in range(2):  # the first allocates pinned and device memory
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunk = st.put_chunk(c)
+            t_call = time.perf_counter() - t0
+            chunk.ready.synchronize()
+            puts.append((t_call * 1e3, (time.perf_counter() - t0) * 1e3))
+        pinned = chunk.host[0]
+        link_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), reps=5, warmup=1)
+        chunk = chunk.acquire()
+        padded = make_device_data_train_step(cfg, model, opt, inner_steps=K, padded_starts=True)
+        step_call = lambda: padded(chunk.packed, chunk.starts, chunk.n_starts, SEED, 0)
+        step_call()
+        alone, beside = [], []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            for rep in range(3):
+                alone.append(stream_ms(step_call) / K)
+                nxt = pool.submit(st.put_chunk, 2 + rep % 2)
+                beside.append(stream_ms(step_call) / K)
+                nxt.result().ready.synchronize()
+        log(f"[time] data chunked: a corpus of {BIG_FRAMES} x {ds.n_mels} f32 ({big.nbytes / 1e9:.3f} GB: "
+            f"the phase-7 corpus repeated by np.resize, a segment start every 64 rows) in "
+            f"{st.n_chunks} chunks of {st.R} rows ({nbytes / 2**20:.0f} MiB); put_chunk returns in "
+            f"{puts[1][0]:.1f} ms (the copy into pinned memory) and the chunk is on the card "
+            f"{puts[1][1]:.1f} ms after the call = {nbytes / puts[1][1] / 1e6:.2f} GB/s end to end "
+            f"(first chunk {puts[0][1]:.1f} ms, with the allocations); the pinned copy alone "
+            f"{link_ms:.3f} ms = {nbytes / link_ms / 1e6:.2f} GB/s (CUDA events, mean of 5) ({card})")
+        log(f"[time] data chunked: multi-step on a resident chunk, no chunk in flight "
+            f"{', '.join(f'{v:.3f}' for v in alone)} ms per step; with the next chunk's put_chunk on a "
+            f"thread and its copy on the side stream {', '.join(f'{v:.3f}' for v in beside)} ms per "
+            f"step (host clock to the end of the compute stream, {K} steps a call; median "
+            f"{np.median(beside) / np.median(alone):.3f}x) ({card})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_data_modes(card: str, cfg, d: Path, seven: dict) -> dict:
+    """Phase 8 on the phase-7 corpus in ``d``."""
+    t0 = time.perf_counter()
+    ds = SegmentDataset(str(d / "train_128.pkl"), str(d / "train_samples_128.json"),
+                        cfg.data_loader.segment_size)
+    phase_residency(card, ds, d)
+    model, opt, res = phase_multi_step(card, cfg, ds)
+    out = phase_mode_clis(card, d, ds, seven["resume_bound"])
+    phase_mode_times(card, cfg, ds, model, opt, res, seven)
+    log(f"[data] phase 8 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def config_copy(d: Path, name: str, **changes) -> Path:
+    """examples/config.yaml with these top-level fields changed, in ``d``."""
+    cfg = dataclasses.replace(load_config(str(REPO / "examples" / "config.yaml")), **changes)
+    path = d / name
+    with open(path, "w") as f:
+        yaml.safe_dump(config_to_dict(cfg), f)
+    return path
 
 
 def phase_training(card: str) -> dict:
-    cfg_path = REPO / "examples" / "config.yaml"
-    cfg = load_config(str(cfg_path))
+    cfg = load_config(str(REPO / "examples" / "config.yaml"))
     phase_train_step_parity(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
-        out = phase_train_cli(card, d, cfg_path)
-        phase_train_times(card, cfg, d)
+        # the config leaves input_mode at auto, which is device mode for this
+        # corpus: 7b-7c test the host stream
+        out = phase_train_cli(card, d, config_copy(d, "config_host.yaml", input_mode="host"))
+        out.update(phase_train_times(card, cfg, d))
+        out.update(phase_data_modes(card, cfg, d, out))
     return out
 
 
@@ -1309,6 +1671,7 @@ def main() -> None:
             "one-shot CLI": main_path["launches"],
             "convert_grid CLI": serving["launches"],
             "train -> serve CLI": training["serve_launches"],
+            "train (device mode) -> serve CLI": training["device_serve_launches"],
         },
         "max_abs_err": kern["a"]["max_abs_err"],
         "ms": times["main"]["ms"],

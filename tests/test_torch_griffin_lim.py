@@ -4,8 +4,12 @@ package's Pallas kernel, run in interpret mode on the CPU.
 
 Tolerances, and why they differ by iteration count:
 - one iteration seeded with the signal's own STFT phases: <= 1e-4 of
-  max|mag|. Only the f32 summation order differs, plus the rare bf16
-  rounding flip it causes at the kernel's two rounding points.
+  max|mag| at every bin whose magnitude is at least 1e-2 of max|mag|, and a
+  relative Frobenius error <= 1e-4 over all bins. Only the f32 summation
+  order differs, plus the rare bf16 rounding flip it causes at the kernel's
+  two rounding points; below the bf16 operands' noise floor (~2e-3 of
+  max|mag|) the projection divides by an |X2| that is rounding noise, so a
+  bin's phase there moves with the summation order (test below).
 - five iterations from zero phase: relative Frobenius error <= 1e-2. From
   zero phase the first projections divide by |X2|, which nearly vanishes at
   some bins where the magnitude is large, so a last-bit difference in the
@@ -81,7 +85,18 @@ def test_plain_one_iteration_matches_pallas(seconds):
         torch.from_numpy(mag), CFG, n_iter=1, init_spec=torch.from_numpy(S)
     ).numpy()
     assert ours.shape == ref.shape
-    assert np.abs(ours - ref).max() <= 1e-4 * mag.max()
+    # The summation order, and so the last bits, depend on the threads XLA's
+    # CPU client and torch get, which vary with the host's load: under six
+    # busy test workers one bin came out 0.0303 apart (2.0e-4 of max|mag|).
+    # A bin whose |X2| is rounding noise can turn by any angle, its error
+    # bounded only by twice its magnitude, so the per-bin bound holds the
+    # bins at or above 1e-2 of max|mag| (15% of them, 99% of the
+    # energy; measured up to 1.4e-5 of max|mag|), and the relative Frobenius
+    # error holds every bin together (measured 1.3e-7 at 0.5 s, 2.2e-5 at
+    # 1.2 s).
+    clear = mag >= 1e-2 * mag.max()
+    assert np.abs(ours - ref)[clear].max() <= 1e-4 * mag.max()
+    assert np.linalg.norm(ours - ref) / np.linalg.norm(ref) <= 1e-4
 
 
 def test_plain_five_iterations_match_pallas_stacked():

@@ -32,12 +32,25 @@ from adaptive_voice_conversion_tpu_torch.core.config import (
     config_to_dict,
     load_config,
 )
+from adaptive_voice_conversion_tpu_torch.data.chunked import ChunkedDeviceStreamer
 from adaptive_voice_conversion_tpu_torch.infer.inferencer import Inferencer
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
 from adaptive_voice_conversion_tpu_torch.train.solver import Solver, SolverArgs, step_seed
+from adaptive_voice_conversion_tpu_torch.train.step import make_device_data_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 N_MELS = 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """The tiny models train as fast on one thread, and one thread per test
+    worker keeps the parallel test workers from oversubscribing the cores
+    (every step here is a few hundred small kernels)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tiny(sn=False, **top):
@@ -108,25 +121,31 @@ def read_log(d, sub="log"):
     return [json.loads(l) for l in open(d / sub / "metrics.jsonl")]
 
 
-def test_solver_trains_and_loss_decreases(data_dir, capsys):
-    solver = Solver(TINY, make_args(data_dir), device="cpu")
-    assert solver.data_mode == "host"  # input_mode auto resolves to host for now
-    assert "input_mode=auto -> host" in capsys.readouterr().out
+@pytest.mark.parametrize(
+    "input_mode,data_mode,summary_steps",
+    # auto: the corpus fits the default budget, so device mode (the JAX
+    # Solver's rule), with one summary per call of inner_steps=10 steps
+    [("auto", "device", [9, 19, 29, 39]), ("host", "host", list(range(0, 40, 5)))],
+)
+def test_solver_trains_and_loss_decreases(data_dir, input_mode, data_mode, summary_steps):
+    cfg = dataclasses.replace(TINY, input_mode=input_mode)
+    solver = Solver(cfg, make_args(data_dir), device="cpu")
+    assert solver.data_mode == data_mode
     m = solver.train(40, log_every_print=False)
     assert set(m) == {"loss", "loss_rec", "loss_kl", "grad_norm", "audio_sec_per_sec"}
     assert np.isfinite(m["loss"]) and m["loss_rec"] > 0 and m["audio_sec_per_sec"] > 0
     rows = [r for r in read_log(data_dir) if "init/ae_train/loss_rec" in r]
-    assert [r["step"] for r in rows] == list(range(0, 40, 5))
+    assert [r["step"] for r in rows] == summary_steps
     assert rows[-1]["init/ae_train/loss_rec"] < rows[0]["init/ae_train/loss_rec"]
     assert all(np.isfinite(v) for r in rows for v in r.values())
-    assert load_config(str(data_dir / "model.config.yaml")) == TINY
+    assert load_config(str(data_dir / "model.config.yaml")) == cfg
     # the final step was saved
     assert CheckpointManager(str(data_dir / "model.ckpts")).latest_step() == 40
 
 
 @pytest.mark.parametrize("sn,opt_state_dtype", [(False, "float32"), (True, "bfloat16")])
 def test_solver_checkpoint_resume_is_deterministic(data_dir, sn, opt_state_dtype):
-    cfg = tiny(sn=sn, opt_state_dtype=opt_state_dtype)
+    cfg = tiny(sn=sn, opt_state_dtype=opt_state_dtype, input_mode="host")
     s1 = Solver(cfg, make_args(data_dir, tag="a"), device="cpu")
     s1.train(10, log_every_print=False)  # saves step 10 at its end
 
@@ -158,7 +177,7 @@ def test_step_seed_is_a_function_of_seed_and_step():
 
 def test_in_training_eval_and_audio(data_dir):
     with_eval_split(data_dir)
-    cfg = dataclasses.replace(TINY, signal=AUDIO_SIGNAL, annealing_iters=8)
+    cfg = dataclasses.replace(TINY, signal=AUDIO_SIGNAL, annealing_iters=8, input_mode="host")
     args = make_args(data_dir, eval_steps=5, eval_set="in_test")
     args.eval_audio_gl_iters = 2
     solver = Solver(cfg, args, device="cpu")
@@ -196,7 +215,8 @@ def test_solver_zero_iterations(data_dir):
 
 
 def test_rolling_checkpoints_keep_three_and_ignore_torn_files(data_dir):
-    solver = Solver(TINY, make_args(data_dir, save_steps=2), device="cpu")
+    host = dataclasses.replace(TINY, input_mode="host")
+    solver = Solver(host, make_args(data_dir, save_steps=2), device="cpu")
     solver.train(9, log_every_print=False)  # saves 2, 4, 6, 8 and the end, 9
     ckpts = data_dir / "model.ckpts"
     assert sorted(p.name for p in ckpts.iterdir()) == ["step_6.pt", "step_8.pt", "step_9.pt"]
@@ -267,9 +287,15 @@ def test_defaults_need_a_gpu_and_unported_paths_raise(data_dir):
         with pytest.raises(RuntimeError, match="cuda"):
             Inferencer.from_train_checkpoint(TINY, str(data_dir / "model"), str(data_dir / "attr.pkl"))
     assert cli_train.build_parser().parse_args([]).device == "cuda"
-    for mode in ("device", "device_sharded", "chunked"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            Solver(dataclasses.replace(TINY, input_mode=mode), make_args(data_dir), device="cpu")
+    # the data modes construct; device_sharded falls back to device on one
+    # device, and only the multi-GPU branches raise
+    for mode, want in (("device", "device"), ("device_sharded", "device"), ("chunked", "chunked")):
+        solver = Solver(dataclasses.replace(TINY, input_mode=mode), make_args(data_dir), device="cpu")
+        assert solver.data_mode == want
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_device_data_train_step(TINY, solver.model, solver.optimizer, sharded_data=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ChunkedDeviceStreamer(solver.dataset, 10_000, batch_size=8, mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
         Solver(dataclasses.replace(TINY, opt_fused="bucketed4"), make_args(data_dir), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
