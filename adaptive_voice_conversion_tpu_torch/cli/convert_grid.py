@@ -29,10 +29,11 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("-targets", "-t", nargs="+", required=True,
                         help="target wav paths (speaker)")
     parser.add_argument("-output_dir", "-o", required=True)
-    parser.add_argument("--gl_method", default="exact", choices=["exact", "fused"],
+    parser.add_argument("--gl_method", default="exact", choices=["exact", "fused", "pallas"],
                         help="Griffin-Lim: per-sample-exact masked iterations, "
                         "or the fused CUDA kernel between masked exact "
-                        "warm-start and polish iterations")
+                        "warm-start and polish iterations (pallas: the JAX "
+                        "package's name for fused)")
     parser.add_argument("--gl_iters", type=int, default=None,
                         help="Griffin-Lim iterations (default: config n_iter)")
     parser.add_argument("--len_bucket", type=int, default=1,

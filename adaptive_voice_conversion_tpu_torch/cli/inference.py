@@ -23,9 +23,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("-sample_rate", "-sr", default=24000, type=int)
     parser.add_argument("--cpu_vocoder", action="store_true",
                         help="run the vocoder on the CPU instead of --device")
-    parser.add_argument("--gl_method", default="exact", choices=["exact", "fused"],
+    parser.add_argument("--gl_method", default="exact", choices=["exact", "fused", "pallas"],
                         help="Griffin-Lim: the exact torch.fft loop, or the "
-                        "fused CUDA kernel's hybrid schedule")
+                        "fused CUDA kernel's hybrid schedule (pallas: the JAX "
+                        "package's name for fused)")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest"],
                         help="TF32 switches: default leaves PyTorch's, "

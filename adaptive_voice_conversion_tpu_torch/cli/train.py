@@ -5,13 +5,23 @@
         -train_index_file train_samples_128.json -iters 500000
 
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--compute_dtype
-bfloat16`` overrides the config's. One process on one device: ``--n_data``
-above 1 and ``--multihost`` raise until the multi-GPU slice (ROADMAP item
-10) is ported.
+bfloat16`` overrides the config's.
+
+Data-parallel: one process per GPU, started by torchrun, each a rank of the
+data axis (core/mesh.py):
+
+    torchrun --standalone --nproc_per_node 8 \
+        -m adaptive_voice_conversion_tpu_torch.cli.train --multihost ...
+
+``--multihost``, or torchrun's ``WORLD_SIZE`` in the environment, starts
+the process group: NCCL on GPUs, gloo with ``--device cpu``.
+``--n_data`` defaults to the world size and must equal it (tensor
+parallelism is not ported yet).
 """
 
 import dataclasses
 import json
+import os
 from argparse import ArgumentParser
 
 
@@ -45,14 +55,15 @@ def build_parser() -> ArgumentParser:
                         "held-out losses + one converted audio sample from "
                         "a fixed eval pair (0 = only post-training eval)")
     parser.add_argument("--n_data", type=int, default=0,
-                        help="data-parallel size (0 or 1: one device; more "
-                        "is not ported yet)")
+                        help="data-parallel size (0 = the world size; one "
+                        "rank per process)")
     parser.add_argument("--profile_dir", default="",
                         help="capture a torch.profiler trace of the first "
                              "training steps into this dir")
     parser.add_argument("--debug_nans", action="store_true")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-process runs (not ported yet)")
+                        help="start the process group from torchrun's "
+                        "environment (implied when WORLD_SIZE is set)")
     parser.add_argument("--compute_dtype", default="",
                         choices=["", "float32", "bfloat16"])
     parser.add_argument("--device", default="cuda",
@@ -64,17 +75,20 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
 
     from ..core.config import load_config
-    from ..train.solver import Solver, SolverArgs
+    from ..core.mesh import init_multihost, make_mesh
+    from ..train.solver import SolverArgs
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-process training is ROADMAP item 10 (slice 6) "
-            "and is not ported yet"
-        )
-    if args.n_data > 1:
-        raise NotImplementedError(
-            f"--n_data {args.n_data}: data-parallel training is ROADMAP item "
-            "10 (slice 6) and is not ported yet"
+    mesh = None
+    if args.multihost or "WORLD_SIZE" in os.environ:
+        backend = init_multihost(device=args.device)
+        mesh = make_mesh(n_data=args.n_data or None)
+        if mesh.rank == 0:
+            print(f"[mesh] {backend}: {mesh.world_size} ranks, data x model = "
+                  f"{mesh.n_data} x {mesh.n_model}", flush=True)
+    elif args.n_data > 1:
+        raise ValueError(
+            f"--n_data {args.n_data}: a process is one rank; start "
+            f"{args.n_data} processes with torchrun"
         )
 
     config = load_config(args.config)
@@ -102,7 +116,19 @@ def main(argv=None) -> None:
 
         enable_nan_debugging(True)
 
-    solver = Solver(config, solver_args, device=args.device)
+    try:
+        _run(args, config, solver_args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, config, solver_args, mesh) -> None:
+    from ..train.solver import Solver
+
+    solver = Solver(config, solver_args, device=args.device, mesh=mesh)
     if args.iters > 0:
         if args.profile_dir:
             from ..utils import profile_trace
@@ -119,7 +145,8 @@ def main(argv=None) -> None:
     if args.eval_set and not (args.eval_steps and args.iters > 0):
         idx = args.eval_index_file or f"{args.eval_set}_samples_{config.data_loader.segment_size}.json"
         metrics = solver.evaluate(args.eval_set, idx)
-        print("\neval", args.eval_set, json.dumps(metrics))
+        if solver.is_main:
+            print("\neval", args.eval_set, json.dumps(metrics))
 
 
 if __name__ == "__main__":

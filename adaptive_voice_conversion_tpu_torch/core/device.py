@@ -7,21 +7,29 @@ on silently on the CPU.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means ``cuda``. Raises if CUDA is asked for and absent."""
+    """``None`` means ``cuda``. Raises if CUDA is asked for and absent.
+
+    Under a process group (core/mesh.py) a rank is one GPU: ``None`` and a
+    bare ``cuda`` resolve to ``cuda:LOCAL_RANK`` (torchrun's variable);
+    a device with an index stays as it is."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     return dev
 
 

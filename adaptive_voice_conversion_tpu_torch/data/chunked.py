@@ -25,6 +25,12 @@ The stream keeps up with the steps iff the host-to-device link sustains
 need linearly; ``choose_repeats`` picks it from a measured link rate and step
 time. The planning is the JAX package's (``data/chunked.py``), value for
 value; only the transfer is PyTorch's.
+
+With a mesh (core/mesh.py) every rank follows the same schedule, and the
+host-to-device copy is split over the ranks: R is rounded down to a multiple
+of ``n_data``, each rank copies its ``R / n_data`` rows of the chunk, and
+``DeviceChunk.acquire`` assembles the whole chunk on every rank's device
+with one all-gather. Each rank's link carries ``1 / n_data`` of the bytes.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.mesh import Mesh, all_gather_rows, shard_rows_for_process
 from .dataset import SegmentDataset
 
 
@@ -47,25 +54,32 @@ class Visit:
 
 class DeviceChunk(NamedTuple):
     """One chunk on the device. ``ready`` is the copy's CUDA event (None on
-    the CPU); ``host`` the pinned source, kept alive until the copy is done.
-    Call ``acquire`` on the stream that will use the chunk before its first
-    step."""
+    the CPU); ``host`` the pinned source, kept alive until the copy is done;
+    ``mesh``, when the chunk's rows were copied by the ranks in parts
+    (``packed`` then holds this rank's part). Call ``acquire`` on the thread
+    and the stream that will use the chunk, before its first step: the
+    all-gather of the parts is a collective, which every rank must issue in
+    the same order as the training step's, from the main thread."""
 
     packed: torch.Tensor  # (R, n_mels) in the storage dtype: f32 or bf16
     starts: torch.Tensor  # (s_max,) int64, valid up to n_starts
     n_starts: torch.Tensor  # () int64
     ready: Optional["torch.cuda.Event"]
     host: Optional[torch.Tensor]
+    mesh: Optional[Mesh] = None
 
     def acquire(self) -> "DeviceChunk":
         """Make the current stream wait for the copy, and mark the tensors as
-        used by it so their memory is not reused while its work is queued."""
+        used by it so their memory is not reused while its work is queued;
+        with a mesh, gather the ranks' parts into the whole chunk."""
         if self.ready is not None:
             stream = torch.cuda.current_stream(self.packed.device)
             stream.wait_event(self.ready)
             for t in (self.packed, self.starts, self.n_starts):
                 t.record_stream(stream)
-        return self
+        if self.mesh is None:
+            return self
+        return self._replace(packed=all_gather_rows(self.mesh, self.packed), mesh=None)
 
 
 class ChunkedDeviceStreamer:
@@ -78,15 +92,12 @@ class ChunkedDeviceStreamer:
         seed: int = 0,
         repeats: int = 1,
         device: Optional[torch.device] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
     ):
         """``device``: where ``put_chunk`` sends chunks (default: the CPU,
-        where a chunk is wrapped as it is)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ChunkedDeviceStreamer(mesh=...): multi-GPU and multi-process "
-                "chunk streaming is ROADMAP item 10 (slice 6) and is not ported yet"
-            )
+        where a chunk is wrapped as it is). ``mesh``: split each chunk's
+        copy over the ranks (the module docstring)."""
+        self.mesh = mesh
         self.repeats = max(int(repeats), 1)
         packed = dataset.packed
         seg = dataset.segment_size
@@ -95,6 +106,9 @@ class ChunkedDeviceStreamer:
         total_rows = packed.shape[0]
         R = max(int(chunk_bytes // (n_mels * itemsize)), 4 * seg)
         R = min(R, total_rows)
+        if mesh is not None:
+            # each rank copies R / n_data rows: keep R a multiple of n_data
+            R = max(R - (R % mesh.n_data), mesh.n_data)
         n_chunks = -(-total_rows // R)
 
         starts = np.sort(dataset.starts)
@@ -123,7 +137,7 @@ class ChunkedDeviceStreamer:
         self.packed = packed
         self.R = R
         self.n_chunks = n_chunks
-        self.last_h2d_rows = 0  # rows the last put_chunk shipped
+        self.last_h2d_rows = 0  # rows this rank's last put_chunk shipped
         self.segment_size = seg
         self.batch_size = batch_size
         self.inner_steps = inner_steps
@@ -188,8 +202,14 @@ class ChunkedDeviceStreamer:
         ``put_chunk`` from a thread; registering the whole packed array with
         the driver instead would page-lock the entire corpus, which is this
         mode's reason to exist because it is too large. On the CPU the
-        tensors wrap the host arrays."""
+        tensors wrap the host arrays. With a mesh only this rank's
+        ``R / n_data`` rows cross here (``last_h2d_rows``), and ``acquire``
+        gathers the rest."""
         view = self.chunk_view(chunk_id)
+        if self.mesh is not None:
+            part = self.R // self.mesh.n_data
+            lo = shard_rows_for_process(self.mesh) * part
+            view = view[lo : lo + part]
         self.last_h2d_rows = int(view.shape[0])
         packed = torch.from_numpy(view)
         if packed.dtype == torch.uint16:
@@ -197,7 +217,7 @@ class ChunkedDeviceStreamer:
         starts = torch.from_numpy(self.starts_padded[chunk_id].astype(np.int64))
         n = torch.tensor(int(self.n_starts[chunk_id]), dtype=torch.int64)
         if self.device.type != "cuda":
-            return DeviceChunk(packed, starts, n, None, None)
+            return DeviceChunk(packed, starts, n, None, None, self.mesh)
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         host = packed.pin_memory()
@@ -207,7 +227,7 @@ class ChunkedDeviceStreamer:
             dev_small = small.to(self.device, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
-        return DeviceChunk(dev, dev_small[:-1], dev_small[-1], ready, (host, small))
+        return DeviceChunk(dev, dev_small[:-1], dev_small[-1], ready, (host, small), self.mesh)
 
     # -- deterministic schedule ----------------------------------------------
 

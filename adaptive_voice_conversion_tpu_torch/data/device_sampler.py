@@ -7,6 +7,10 @@ host traffic is zero and no step waits on the host.
 
 Sampling semantics are the reference index pipeline's: a uniform draw over
 the precomputed (utt, t) index entries, i.e. over the segment start rows.
+
+In a data-parallel run every rank holds the whole corpus on its own GPU,
+draws the global batch's positions and gathers its own rows of it
+(``sample_segments(mesh=...)``); data/sharded.py splits the corpus instead.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.mesh import Mesh, local_batch_size, row_window
 from .dataset import SegmentDataset, to_bf16_bits
 
 
@@ -84,7 +89,16 @@ def sample_segments(
     batch_size: int,
     generator: torch.Generator,
     n_valid: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
-    """A uniform segment batch (batch_size, segment_size, n_mels)."""
+    """A uniform segment batch (batch_size, segment_size, n_mels).
+
+    With ``mesh`` (every rank holding the whole corpus) all ``batch_size``
+    positions are drawn, as one process draws them, and only this rank's
+    rows of the batch are gathered: (batch_size / n_data, segment_size,
+    n_mels)."""
     sel = draw_indices(starts.shape[0], batch_size, generator, n_valid)
+    if mesh is not None:
+        lo, hi, _ = row_window(mesh, local_batch_size(batch_size, mesh))
+        sel = sel[lo:hi]
     return gather_rows(packed, starts, sel, segment_size)

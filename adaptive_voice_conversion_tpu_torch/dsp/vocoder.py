@@ -4,7 +4,8 @@ Chain: denormalize dB -> amplitude 10^(x*0.05) -> mel->linear regularized
 pseudo-inverse -> 100 iterations of ISTFT/STFT phase projection ->
 de-preemphasis -> trim. ``griffin_lim(method=...)`` selects the exact
 ``torch.fft`` loop or the fused CUDA kernel's hybrid schedule
-(kernels/griffin_lim.py); the JAX package calls the latter "pallas".
+(kernels/griffin_lim.py); the JAX package calls the latter "pallas", and
+both names select it here (``GL_METHODS``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,14 @@ from .stft import (
 )
 
 DEFAULT_SIGNAL = SignalConfig()
+# "pallas" is the JAX package's name for the fused kernel's schedule
+GL_METHODS = ("exact", "fused", "pallas")
+
+
+def _fused(method: str) -> bool:
+    if method not in GL_METHODS:
+        raise ValueError(f"method={method!r}: expected one of {GL_METHODS}")
+    return method != "exact"
 
 
 def mel_to_mag(mel_tm: torch.Tensor, cfg: SignalConfig = DEFAULT_SIGNAL) -> torch.Tensor:
@@ -72,14 +81,13 @@ def griffin_lim(
 
     ``method``: "exact" (the torch.fft loop) or "fused" (the CUDA kernel
     with the hybrid warm-start/reflect-extend/polish schedule; on a CPU
-    tensor it runs the kernel's plain PyTorch version)."""
+    tensor it runs the kernel's plain PyTorch version); "pallas" is an
+    alias of "fused"."""
     n_iter = cfg.n_iter if n_iter is None else n_iter
-    if method == "fused":
+    if _fused(method):
         from ..kernels.griffin_lim import griffin_lim_fused
 
         return griffin_lim_fused(mag, cfg, n_iter=n_iter)
-    if method != "exact":
-        raise ValueError(f"method={method!r}: expected 'exact' or 'fused'")
     return _griffin_lim_core(mag, cfg.n_fft, cfg.hop_length, cfg.win_length, n_iter)
 
 
@@ -166,16 +174,15 @@ def griffin_lim_masked(
 
     ``method="exact"``: per-sample-exact iterations only (equal to
     ``griffin_lim`` on each sample, see ``_griffin_lim_core_masked``).
-    ``method="fused"``: the fused kernel between 4 masked exact warm-start
-    iterations and 2 of polish (``_griffin_lim_core_masked_fast``), the
-    fast serving mode for mixed-length grids.
+    ``method="fused"`` (or its alias "pallas"): the fused kernel between 4
+    masked exact warm-start iterations and 2 of polish
+    (``_griffin_lim_core_masked_fast``), the fast serving mode for
+    mixed-length grids.
     """
     n_iter = cfg.n_iter if n_iter is None else n_iter
     lens = torch.as_tensor(frame_lengths, dtype=torch.int64, device=mag.device)
-    if method == "fused":
+    if _fused(method):
         return _griffin_lim_core_masked_fast(mag, lens, cfg, n_iter, 4, 2)
-    if method != "exact":
-        raise ValueError(f"method={method!r}: expected 'exact' or 'fused'")
     return _griffin_lim_core_masked(mag, lens, cfg, n_iter)
 
 

@@ -9,6 +9,11 @@ Inferencer's device (``cuda`` unless the caller asks for the CPU).
 batch through the length-masked model (models/masked.py) and one ragged
 Griffin-Lim call (dsp/vocoder.py), so mixed-length inputs convert as
 one-at-a-time conversion would convert them.
+
+With a mesh (core/mesh.py) the pair batch is split over the ranks: every
+rank is handed the same request, converts and vocodes its contiguous rows
+(one fused-kernel launch per rank), and the ranks gather the results, so
+every rank returns every pair.
 """
 
 from __future__ import annotations
@@ -22,9 +27,16 @@ import torch
 
 from ..core.config import TrainConfig
 from ..core.device import DeviceLike, resolve_device, set_precision
+from ..core.mesh import Mesh, all_gather_rows, put_global_from_full
 from ..dsp.audio import deemphasis_torch, save_wav, trim_silence
 from ..dsp.features import get_spectrograms
-from ..dsp.vocoder import griffin_lim, griffin_lim_masked, mel_to_mag, melspectrogram2wav
+from ..dsp.vocoder import (
+    GL_METHODS,
+    griffin_lim,
+    griffin_lim_masked,
+    mel_to_mag,
+    melspectrogram2wav,
+)
 from ..models.ae import AE
 from ..models.masked import ae_inference_masked
 
@@ -48,19 +60,25 @@ class Inferencer:
         precision: Optional[str] = None,
         device: DeviceLike = None,
         gpu_vocoder: bool = True,
+        mesh: Optional[Mesh] = None,
     ):
-        """``model`` is moved to ``device`` (default ``cuda``).
+        """``model`` is moved to ``device`` (default ``cuda``; the rank's GPU
+        under a process group).
 
-        ``gl_method``: "exact" or "fused" (dsp/vocoder.py ``griffin_lim``).
+        ``gl_method``: "exact" or "fused", or "pallas", the JAX package's
+        name for "fused" (dsp/vocoder.py ``griffin_lim``).
         ``precision``: None/"default" keeps PyTorch's defaults, "highest"
         turns TF32 off for matmuls and cuDNN convolutions, "high" allows it
         (core/device.py ``set_precision``; a process-wide switch).
         ``gpu_vocoder=False`` runs the vocoder on the CPU whatever
-        ``device`` is."""
-        if gl_method not in ("exact", "fused"):
-            raise ValueError(f"gl_method={gl_method!r}: expected 'exact' or 'fused'")
+        ``device`` is. ``mesh``: serve ``convert_grid`` / ``convert_pairs``
+        over its ranks (the module docstring); every rank must make the
+        same calls."""
+        if gl_method not in GL_METHODS:
+            raise ValueError(f"gl_method={gl_method!r}: expected one of {GL_METHODS}")
         set_precision(precision)
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.gl_method = gl_method
@@ -272,6 +290,30 @@ class Inferencer:
             )
         return deemphasis_torch(wav, cfg.preemphasis)
 
+    def _serve_on_mesh(self, src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, return_mels):
+        """The mesh's share of ``_serve_batch``: the pair batch padded to a
+        multiple of ``n_data`` with copies of pair 0 (dropped after the
+        gather; the masked programs are per sample, so they change no real
+        pair), this rank's contiguous rows through the masked model and the
+        ragged vocoder, then the gather of every rank's rows. Returns
+        (wavs, dec, dec_lens) of all pairs; dec and dec_lens only when
+        ``return_mels``."""
+        mesh = self.mesh
+        n = src_b.shape[0]
+        pad = (-n) % mesh.n_data
+        if pad:
+            rep = lambda a: torch.cat([a, a[:1].expand(pad, *a.shape[1:])])
+            src_b, sl_b, tar_b, tl_b = map(rep, (src_b, sl_b, tar_b, tl_b))
+        src, sl, tar, tl = (put_global_from_full(a, mesh) for a in (src_b, sl_b, tar_b, tl_b))
+        dec, dec_lens = ae_inference_masked(self.model, src, sl, tar, tl)
+        wavs = self._vocode(dec, dec_lens, gl_method, gl_iters, False)
+        # every rank's rows share the grid's padded length: the row blocks
+        # gather as they are
+        wavs = all_gather_rows(mesh, wavs)[:n]
+        if not return_mels:
+            return wavs, None, None
+        return wavs, all_gather_rows(mesh, dec)[:n], all_gather_rows(mesh, dec_lens)[:n]
+
     def _serve_batch(
         self, src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, uniform, trim,
         return_mels,
@@ -279,18 +321,25 @@ class Inferencer:
         """Shared by convert_grid and convert_pairs: the (masked) model, the
         vocode chain, one copy of the finished wavs to the host, and the
         crop / trim / mels epilogue there. A pair's wav is cropped to its
-        true source frame count, ``sl_b[k]``."""
+        true source frame count, ``sl_b[k]``. With a mesh the masked model
+        runs whatever the padding (``_serve_on_mesh``)."""
         gl_method = self.gl_method if gl_method is None else gl_method
         hop = self.config.signal.hop_length
         crop_lens = sl_b.tolist()
         n = len(crop_lens)
         with torch.no_grad():
-            if uniform:
-                dec = self.model.inference(src_b, tar_b)
-                dec_lens = torch.full((n,), dec.shape[1], dtype=torch.int64, device=dec.device)
+            if self.mesh is not None:
+                wavs, dec, dec_lens = self._serve_on_mesh(
+                    src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, return_mels
+                )
             else:
-                dec, dec_lens = ae_inference_masked(self.model, src_b, sl_b, tar_b, tl_b)
-            wavs = self._vocode(dec, dec_lens, gl_method, gl_iters, uniform).cpu().numpy()
+                if uniform:
+                    dec = self.model.inference(src_b, tar_b)
+                    dec_lens = torch.full((n,), dec.shape[1], dtype=torch.int64, device=dec.device)
+                else:
+                    dec, dec_lens = ae_inference_masked(self.model, src_b, sl_b, tar_b, tl_b)
+                wavs = self._vocode(dec, dec_lens, gl_method, gl_iters, uniform)
+            wavs = wavs.cpu().numpy()
         out: List[np.ndarray] = []
         for k in range(n):
             w = wavs[k][: hop * (crop_lens[k] - 1)]

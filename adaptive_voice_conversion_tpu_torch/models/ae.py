@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..core.config import AEConfig
-from .modules import ContentEncoder, Decoder, SpeakerEncoder
+from .modules import ContentEncoder, Decoder, SpeakerEncoder, global_draw
 
 
 class AE(nn.Module):
@@ -30,6 +30,7 @@ class AE(nn.Module):
         eps: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        rows: Optional[Tuple[int, int, int]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Training forward: the same utterance x (B, T, C) feeds both
         encoders; ``z = mu + exp(log_sigma / 2) * eps``. Returns
@@ -38,18 +39,20 @@ class AE(nn.Module):
         ``eps`` (B, T/prod(subsample), c_out) f32 is the normal draw; when
         it is None it is drawn from ``generator`` (which must be on x's
         device). ``generator`` also feeds the dropout masks in training
-        mode."""
+        mode. ``rows = (lo, hi, B_global)`` says that x is rows ``lo:hi`` of
+        a global batch of ``B_global`` (one rank of a data-parallel run):
+        ``eps`` and the masks are then drawn at the global shape and sliced
+        (modules.py ``global_draw``), so the ranks draw together what one
+        process draws; without it the draws are at x's shape."""
         xc = x.transpose(1, 2)
-        emb = self.speaker_encoder(xc, generator, compute_dtype)
-        mu, log_sigma = self.content_encoder(xc, generator, compute_dtype)
+        emb = self.speaker_encoder(xc, generator, compute_dtype, rows)
+        mu, log_sigma = self.content_encoder(xc, generator, compute_dtype, rows)
         if eps is None:
-            eps = torch.randn(
-                log_sigma.shape, generator=generator, device=x.device, dtype=torch.float32
-            )
+            eps = global_draw(torch.randn, log_sigma.shape, rows, x.device, generator)
         else:
             eps = eps.transpose(1, 2)
         z = mu + torch.exp(log_sigma / 2) * eps
-        dec = self.decoder(z, emb, generator, compute_dtype)
+        dec = self.decoder(z, emb, generator, compute_dtype, rows)
         return mu.transpose(1, 2), log_sigma.transpose(1, 2), emb, dec.transpose(1, 2)
 
     def inference(self, x: torch.Tensor, x_cond: torch.Tensor) -> torch.Tensor:

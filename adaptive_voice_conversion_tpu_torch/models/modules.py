@@ -141,15 +141,32 @@ def _bank(layers: nn.ModuleList, x, kernel_sizes, act, compute_dtype=None) -> to
     )
 
 
+def global_draw(
+    draw, shape, rows: Optional[Tuple[int, int, int]], device: torch.device,
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """``draw(shape)`` from ``generator``; with a row window ``(lo, hi,
+    B_global)`` (a rank's rows of the global batch, core/mesh.py
+    ``row_window``) the draw is made at the global shape ``(B_global,
+    *shape[1:])`` and rows ``lo:hi`` are kept, so N ranks draw what one
+    process draws for the whole batch."""
+    if rows is None:
+        return draw(shape, generator=generator, device=device)
+    lo, hi, b_global = rows
+    return draw((b_global, *shape[1:]), generator=generator, device=device)[lo:hi]
+
+
 def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], training: bool
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], training: bool,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (on x's
-    device). The identity in eval mode, at rate 0, or without a generator."""
+    device), at the global batch shape when ``rows`` is given. The identity
+    in eval mode, at rate 0, or without a generator."""
     if not training or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = global_draw(torch.rand, x.shape, rows, x.device, generator) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -201,10 +218,10 @@ class SpeakerEncoder(nn.Module):
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-        compute_dtype: Optional[torch.dtype] = None,
+        compute_dtype: Optional[torch.dtype] = None, rows=None,
     ) -> torch.Tensor:
         act, cd = self.act, compute_dtype
-        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training)
+        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training, rows)
         out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
         out = act(_conv(self.in_conv_layer, out, cd))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):
@@ -247,10 +264,10 @@ class ContentEncoder(nn.Module):
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-        compute_dtype: Optional[torch.dtype] = None,
+        compute_dtype: Optional[torch.dtype] = None, rows=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         act, cd = self.act, compute_dtype
-        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training)
+        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training, rows)
         out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
         # instance norm before every activation
         out = drop(act(instance_norm_time(_conv(self.in_conv_layer, out, cd))))
@@ -291,10 +308,10 @@ class Decoder(nn.Module):
     def forward(
         self, z: torch.Tensor, cond: torch.Tensor,
         generator: Optional[torch.Generator] = None,
-        compute_dtype: Optional[torch.dtype] = None,
+        compute_dtype: Optional[torch.dtype] = None, rows=None,
     ) -> torch.Tensor:
         act, cd = self.act, compute_dtype
-        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training)
+        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training, rows)
         out = drop(act(instance_norm_time(_conv(self.in_conv_layer, z, cd))))
         for l, up in enumerate(self.cfg.upsample[: self.cfg.n_conv_blocks]):
             y = instance_norm_time(_conv(self.first_conv_layers[l], out, cd))

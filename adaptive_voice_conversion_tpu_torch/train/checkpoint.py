@@ -8,6 +8,12 @@ written under a temporary name and renamed, so the newest ``step_<n>.pt`` is
 never torn; leftovers of a killed writer are ignored. ``save`` copies the
 state to host memory at once and writes the file on a background thread;
 ``wait`` joins it.
+
+In a multi-process run (``mesh``, core/mesh.py) the ranks hold the same
+state: rank 0 alone writes, and every rank restores. ``wait`` ends with a
+barrier and ``restore`` begins with one, so no rank reads a checkpoint that
+rank 0 is still writing; every rank calls ``save``, ``wait`` and
+``restore`` at the same points.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import threading
 from typing import Any, Optional, Tuple
 
 import torch
+
+from ..core.mesh import Mesh, barrier
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -34,9 +42,11 @@ def _to_host(obj: Any) -> Any:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         os.makedirs(self.directory, exist_ok=True)
@@ -64,8 +74,11 @@ class CheckpointManager:
 
     def save(self, step: int, model_state: dict, opt_state: dict, extra: dict) -> None:
         """Snapshot the state on the host now; write it in the background.
-        An earlier write still in flight is joined first."""
+        An earlier write still in flight is joined first. A rank other than
+        0 writes nothing."""
         self.wait()
+        if not self.is_writer:
+            return
         payload = {
             "model": _to_host(model_state),
             "optimizer": _to_host(opt_state),
@@ -92,6 +105,8 @@ class CheckpointManager:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self.mesh is not None:
+            barrier(self.mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

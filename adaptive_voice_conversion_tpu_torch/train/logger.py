@@ -1,5 +1,6 @@
 """Metrics logging: tensorboardX scalars when that package is installed,
-plus a JSONL stream (``metrics.jsonl``), written by the main process only."""
+plus a JSONL stream (``metrics.jsonl``), written by the main process only:
+rank 0 of a multi-process run (core/mesh.py), or the one process."""
 
 from __future__ import annotations
 
@@ -9,12 +10,12 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch.distributed as dist
 
 
 class Logger:
     def __init__(self, logdir: str, use_tensorboard: bool = True):
-        # one process for now, so every Logger is the main process's
-        self.is_main = True
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.logdir = logdir
         self._tb = None
         self._jsonl = None

@@ -1,17 +1,27 @@
-"""Training orchestration on one device.
+"""Training orchestration, on one GPU or data-parallel over ranks.
 
 - the step (train/step.py) never waits for the device; metrics are fetched
   only every ``summary_steps``
 - ``input_mode`` picks the data path, by the JAX package's rule: ``auto`` is
   ``device`` when the corpus (in the dtype it would take on the device) fits
-  ``device_data_budget_bytes`` and ``chunked`` above it; ``device_sharded``
-  needs several GPUs and falls back to ``device`` on one
-  - ``device``: the corpus resident on the GPU, batches drawn there, and
-    ``inner_steps`` steps per call (data/device_sampler.py)
+  ``device_data_budget_bytes``, ``device_sharded`` when it fits the budget
+  of all ``n_data`` ranks together, and ``chunked`` above that;
+  ``device_sharded`` with ``n_data`` < 2 runs as ``device``
+  - ``device``: the corpus resident on the GPU (on every rank's), batches
+    drawn there, and ``inner_steps`` steps per call (data/device_sampler.py)
+  - ``device_sharded``: each rank holds one shard of the corpus and draws
+    its rows of every batch from it (data/sharded.py)
   - ``chunked``: the corpus streamed in fixed-size chunks, the next one
-    crossing while the current one trains (data/chunked.py)
+    crossing while the current one trains (data/chunked.py); with a mesh
+    each rank copies a part of each chunk and the ranks gather the rest
   - ``host``: a seeded resumable cursor (data/loader.py) gathered on a host
-    thread and copied ahead on a side stream
+    thread and copied ahead on a side stream; with a mesh each rank
+    gathers its rows of every global batch
+- with a mesh (core/mesh.py, one process per GPU), the parameters start
+  from rank 0's, the gradients are averaged over the ranks every step, and
+  every rank computes the one-process metrics; rank 0 alone logs, prints,
+  saves the config and writes checkpoints, and in-training evaluation is
+  skipped (``evaluate`` runs on every rank, with no collective)
 - checkpoints are rolling step checkpoints with optimiser state and the
   iteration; resume continues the exact segment sequence and the exact
   per-step random draws, in every mode
@@ -32,9 +42,11 @@ import torch
 
 from ..core.config import TrainConfig, config_to_dict
 from ..core.device import DeviceLike, resolve_device
+from ..core.mesh import Mesh, all_reduce_max, replicate_pytree
 from ..data.chunked import ChunkedDeviceStreamer
 from ..data.dataset import SegmentDataset
 from ..data.device_sampler import DeviceResidentDataset
+from ..data.sharded import ShardedDeviceDataset
 from ..data.loader import batch_iterator, device_prefetch
 from ..models.ae import AE, count_params
 from ..models.modules import init_parameters
@@ -75,12 +87,19 @@ class SolverArgs:
 
 
 class Solver:
-    def __init__(self, config: TrainConfig, args: SolverArgs, device: DeviceLike = None):
-        """``device`` defaults to ``cuda`` and raises without a GPU; pass
-        ``"cpu"`` to train on the CPU."""
+    def __init__(
+        self, config: TrainConfig, args: SolverArgs, device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
+    ):
+        """``device`` defaults to ``cuda`` (the rank's GPU under a process
+        group) and raises without a GPU; pass ``"cpu"`` to train on the CPU.
+        ``mesh``: train data-parallel over its ranks (the module
+        docstring)."""
         self.config = config
         self.args = args
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.logger = Logger(args.logdir)
         self.iteration = 0
         self._mngr: Optional[CheckpointManager] = None
@@ -110,18 +129,24 @@ class Solver:
         dtype = "bfloat16" if "bfloat16" in (c.data_dtype, c.compute_dtype) else "float32"
         itemsize = 2 if dtype == "bfloat16" else 4
         wire_bytes = int(self.dataset.packed.size) * itemsize
+        n_data = self.mesh.n_data if self.mesh is not None else 1
         mode = c.input_mode
         if mode == "auto":
-            # one device: "device_sharded" (the corpus split over several
-            # GPUs' memory) is never the choice
-            mode = "device" if wire_bytes <= c.device_data_budget_bytes else "chunked"
-        if mode == "device_sharded":
-            mode = "device"  # falls back without a data axis of 2 or more
+            if wire_bytes <= c.device_data_budget_bytes:
+                mode = "device"
+            elif n_data > 1 and wire_bytes <= c.device_data_budget_bytes * n_data:
+                mode = "device_sharded"
+            else:
+                mode = "chunked"
+        if mode == "device_sharded" and n_data < 2:
+            mode = "device"  # the JAX rule: no data axis to shard over
         self.data_mode = mode
-        self.device_data: Optional[DeviceResidentDataset] = None
+        self.device_data = None
         self.chunked: Optional[ChunkedDeviceStreamer] = None
         if mode == "device":
             self.device_data = DeviceResidentDataset(self.dataset, self.device, dtype=dtype)
+        elif mode == "device_sharded":
+            self.device_data = ShardedDeviceDataset(self.dataset, self.mesh, self.device, dtype=dtype)
         elif mode == "chunked":
             self.chunked = ChunkedDeviceStreamer(
                 self.dataset,
@@ -132,6 +157,7 @@ class Solver:
                 # "auto" is measured at training start (_resolve_chunk_repeats)
                 repeats=1 if c.chunk_repeats == "auto" else c.chunk_repeats,
                 device=self.device,
+                mesh=self.mesh,
             )
 
     def _build_model(self) -> None:
@@ -142,7 +168,11 @@ class Solver:
         init_parameters(self.model, gen)
         self.model.to(self.device)
         self.optimizer = self._make_optimizer(self.model)
-        self.step_fn = make_train_step(c, self.model, self.optimizer)
+        if self.mesh is not None:
+            # every rank starts from rank 0's parameters, buffers and
+            # optimiser state
+            replicate_pytree([self.model.state_dict(), list(self.optimizer.state.values())], self.mesh)
+        self.step_fn = make_train_step(c, self.model, self.optimizer, self.mesh)
         self._multi_steps: dict = {}
         self.n_params = count_params(self.model)
 
@@ -159,6 +189,8 @@ class Solver:
             self.optimizer if optimizer is None else optimizer,
             inner_steps=inner_steps,
             padded_starts=self.data_mode == "chunked",
+            sharded_data=self.data_mode == "device_sharded",
+            mesh=self.mesh,
         )
 
     def _multi_step(self, k: int):
@@ -169,6 +201,8 @@ class Solver:
         return self._multi_steps[k]
 
     def _save_config(self) -> None:
+        if not self.is_main:
+            return
         import yaml
 
         os.makedirs(os.path.dirname(self.args.store_model_path) or ".", exist_ok=True)
@@ -183,7 +217,9 @@ class Solver:
 
     def save_model(self, iteration: int) -> None:
         if self._mngr is None:
-            self._mngr = CheckpointManager(self.checkpoint_dir(self.args.store_model_path))
+            self._mngr = CheckpointManager(
+                self.checkpoint_dir(self.args.store_model_path), mesh=self.mesh
+            )
         extra = {"iteration": iteration + 1, "seed": self.args.seed}
         if self._chunk_repeats_resolved is not None:
             # the visit schedule depends on it: a resumed run replays it
@@ -193,12 +229,11 @@ class Solver:
         )
 
     def load_model(self) -> None:
+        """Every rank restores the newest checkpoint (the ranks' states are
+        equal, so this keeps them so)."""
         path = self.args.load_model_path or self.args.store_model_path
-        mngr = CheckpointManager(self.checkpoint_dir(path))
-        step = mngr.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {self.checkpoint_dir(path)}")
-        model_state, opt_state, extra = mngr.restore(step)
+        mngr = CheckpointManager(self.checkpoint_dir(path), mesh=self.mesh)
+        model_state, opt_state, extra = mngr.restore()
         self.model.load_state_dict(model_state, strict=True)
         self.optimizer.load_state_dict(opt_state)
         self.iteration = int(extra["iteration"])
@@ -256,7 +291,8 @@ class Solver:
         ``{tag}/ae_eval_{split}`` plus one fixed (source, target) conversion
         sample per eval, so a run shows converted audio and not only curves."""
         a, c = self.args, self.config
-        if not a.eval_set:
+        if not a.eval_set or self.mesh is not None and self.mesh.world_size > 1:
+            # as the JAX Solver: a multi-process run evaluates after training
             return
         idx = a.eval_index_file or f"{a.eval_set}_samples_{c.data_loader.segment_size}.json"
         m = self.evaluate(a.eval_set, idx, max_batches=a.eval_max_batches, iteration=it)
@@ -326,7 +362,8 @@ class Solver:
     # -- training ---------------------------------------------------------
 
     def train(self, n_iterations: int, log_every_print: bool = True) -> dict:
-        if self.data_mode == "device":
+        log_every_print = log_every_print and self.is_main
+        if self.data_mode in ("device", "device_sharded"):
             return self._train_device(n_iterations, log_every_print)
         if self.data_mode == "chunked":
             return self._train_chunked(n_iterations, log_every_print)
@@ -430,13 +467,17 @@ class Solver:
         t_step = (time.perf_counter() - t0) / c.inner_steps
         del model, opt, probe
         r = self.chunked.choose_repeats(t_step, bw)
+        if self.mesh is not None:
+            # every rank must follow the same schedule: the largest choice
+            r = all_reduce_max(self.mesh, r)
         self._chunk_repeats_resolved = r
         self.chunked.set_repeats(r)
-        print(
-            f"chunk_repeats=auto -> {r} (H2D {bw / 1e6:.1f} MB/s, step "
-            f"{t_step * 1e3:.2f} ms, need {self.chunked.required_bandwidth(t_step) / 1e6:.1f} MB/s)",
-            flush=True,
-        )
+        if self.is_main:
+            print(
+                f"chunk_repeats=auto -> {r} (H2D {bw / 1e6:.1f} MB/s, step "
+                f"{t_step * 1e3:.2f} ms, need {self.chunked.required_bandwidth(t_step) / 1e6:.1f} MB/s)",
+                flush=True,
+            )
 
     def _train_chunked(self, n_iterations: int, log_every_print: bool) -> dict:
         """Corpora over the device budget: the chunk schedule of
@@ -450,14 +491,15 @@ class Solver:
         steps_done = 0
         last = None
         with ThreadPoolExecutor(max_workers=1) as pool:
-            chunk = self.chunked.put_chunk(visits[0].chunk_id) if visits else None
+            # acquire() on this thread: with a mesh it is a collective
+            chunk = self.chunked.put_chunk(visits[0].chunk_id).acquire() if visits else None
             for vi, v in enumerate(visits):
                 nxt = visits[vi + 1] if vi + 1 < len(visits) else None
                 if nxt is not None and nxt.chunk_id != v.chunk_id:
                     next_chunk = pool.submit(self.chunked.put_chunk, nxt.chunk_id)
                 else:
                     next_chunk = None
-                packed, starts, n_starts = chunk.acquire()[:3]
+                packed, starts, n_starts = chunk[:3]
                 it, endv = v.it0, v.it0 + v.k
                 while it < endv:
                     k = min(K, endv - it)
@@ -468,7 +510,7 @@ class Solver:
                         ms, it, k, end, steps_done, t_start, log_every_print
                     ) or last
                 if next_chunk is not None:
-                    chunk = next_chunk.result()
+                    chunk = next_chunk.result().acquire()
         self._finish(end)
         return last or {}
 
@@ -482,6 +524,8 @@ class Solver:
                 shuffle=c.data_loader.shuffle,
                 seed=a.seed,
                 start_step=self.iteration,
+                host_index=self.mesh.data_index if self.mesh is not None else 0,
+                host_count=self.mesh.n_data if self.mesh is not None else 1,
             ),
             self.device,
         )

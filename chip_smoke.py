@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   4. the main path at the full examples/config.yaml width: seeded wavs,
      attr.pkl and a reference-format .ckpt of seeded weights, then the
      one-shot conversion CLI with --gl_method fused in a subprocess, with
-     the kernel's launch count read around it; the converted mel on the card
+     the kernel's launch count read around it, and again with --gl_method
+     pallas (the JAX package's name: the same wav); the converted mel on the card
      against the same model on the CPU; fused against exact vocoder SC;
   5. batched serving at the same width: 4 source and 8 target wavs of
      mixed lengths through the convert_grid CLI with --gl_method fused in a
@@ -54,9 +55,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
      kernel launch; (e) the multi-step's times in turns with host steps on
      a resident batch, beside 7e's, and a 1 GB
      corpus streamed in 256 MiB chunks: the link's rate and the step with
-     and without a chunk in flight.
+     and without a chunk in flight;
+  9. distribution, on the phase-7 corpus and the phase-5 grid. The card host
+     has one GPU, so NCCL runs at world size 1 and two ranks share the card
+     over gloo: (a) the training CLI under torchrun with --multihost (NCCL,
+     world size 1) in device mode, 40 steps, against phase 8d's device-mode
+     series; (b) two gloo ranks on the card (TF32 off, cuDNN deterministic),
+     one data-parallel step of 64 rows each against one process's step on
+     the 128 rows (in f64, and in f32 against one process's steps on the
+     same 64-row halves), and a 10-step device_sharded multi-step whose ranks'
+     metric rows must be equal bit for bit; (c) the 4 x 8 grid served by two
+     gloo ranks with --gl_method fused, one kernel launch per rank, mels
+     against the one-process grid, each pair's SC against the masked exact
+     vocoder's; (d) the all-reduce's and the step's times under NCCL at world
+     size 1 and over gloo. Times of ranks that share one card, not scaling.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
+
+Run as ``chip_smoke.py --rank <case> <dir> [<rank> <world> <init>]`` it is
+one rank of phase 9, started by the script itself.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -713,6 +730,17 @@ def phase_main_path(card: str) -> dict:
         log(f"[main] CLI one-shot conversion --gl_method fused: {len(wav)} samples "
             f"written (trimmed from {n_max}), kernel launches {launches}, "
             f"{cli_s:.2f} s wall clock for the whole process ({card})")
+        # "pallas", the JAX package's name for the fused schedule
+        alias_out = d / "converted_pallas.wav"
+        alias_argv = argv[:-3] + [alias_out, "--gl_method", "pallas"]
+        alias_launches, _ = run_cli("inference", alias_argv)
+        _, alias_wav = wavfile.read(alias_out)
+        check(alias_launches == launches, f"--gl_method pallas launched the kernel {alias_launches} "
+              f"times, fused {launches}")
+        check(np.array_equal(alias_wav, wav), "--gl_method pallas wrote another wav than fused: "
+              f"max|diff| {float(np.abs(alias_wav - wav).max()) if alias_wav.shape == wav.shape else alias_wav.shape}")
+        log(f"[main] CLI one-shot conversion --gl_method pallas (the JAX package's name): kernel "
+            f"launches {alias_launches}, the wav equals --gl_method fused's bit for bit")
 
         # the converted mel on the card against the same model on the CPU
         gpu = load_checkpoint(str(ckpt), cfg.model, "cuda")
@@ -910,14 +938,10 @@ def phase_serving(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_step_card_vs_cpu(cfg, seed: int, lam: float = 0.5) -> dict:
-    """One training step from the same seeded weights, batch and eps on the
-    card and on the CPU (f32; the caller turns TF32 off). Returns the two
-    metric dicts and the differences of what the step changed."""
+def step_inputs(cfg, seed: int) -> tuple:
+    """A seeded global batch x (B, T, n_mels) and eps (B, T', c_out), f32
+    on the CPU."""
     dl, ce = cfg.data_loader, cfg.model.content_encoder
-    cpu = AE(cfg.model)
-    init_parameters(cpu, torch.Generator().manual_seed(seed))
-    card = copy.deepcopy(cpu).to("cuda")
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(
         rng.standard_normal((dl.batch_size, dl.segment_size, ce.c_in)).astype(np.float32)
@@ -926,6 +950,17 @@ def train_step_card_vs_cpu(cfg, seed: int, lam: float = 0.5) -> dict:
     eps = torch.from_numpy(
         rng.standard_normal((dl.batch_size, t_code, ce.c_out)).astype(np.float32)
     )
+    return x, eps
+
+
+def train_step_card_vs_cpu(cfg, seed: int, lam: float = 0.5) -> dict:
+    """One training step from the same seeded weights, batch and eps on the
+    card and on the CPU (f32; the caller turns TF32 off). Returns the two
+    metric dicts and the differences of what the step changed."""
+    cpu = AE(cfg.model)
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).to("cuda")
+    x, eps = step_inputs(cfg, seed)
     out = {"lr": cfg.optimizer.lr}
     opts = {}
     for name, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
@@ -1629,6 +1664,370 @@ def phase_data_modes(card: str, cfg, d: Path, seven: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: distribution
+# ---------------------------------------------------------------------------
+
+# 9b: two ranks' data-parallel step against one process's step on the same
+# global batch (f32, TF32 off, cuDNN deterministic): the losses and
+# grad_norm to rtol 1e-5 and the all-reduced gradient to a relative
+# Frobenius 1e-5 over all tensors, the JAX package's bound for its sharded
+# step (tests/test_distributed.py:58-65). Gradients, not the parameters after
+# Adam: its first step moves an entry by about lr x sign(g) whatever |g|, so
+# it magnifies the rounding of near-zero gradients (7a). In f32 the card
+# computes a 64-row batch in another order than a 128-row one (cuDNN picks its
+# algorithms by the shape; PyTorch's own convolutions and reductions tile by
+# it too), and at this width that alone put the gradients 2.5e-5 (cuDNN)
+# and 3.1e-5 (cuDNN off) apart on an H100 (80GB HBM3, 700 W), data axis or
+# not. So the step runs twice: in f64, where that rounding is ~1e-13, the
+# ranks are held against one process's step on the 128 rows; in f32,
+# against the mean of one process's steps on each rank's 64 rows.
+TOL_DIST = 1e-5
+DIST_WORLD = 2
+
+
+def rank_env() -> dict:
+    """The ranks' environment: collectives on the loopback interface (the
+    card's host has no other network)."""
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    return env
+
+
+def spawn_ranks(case: str, work: Path, timeout: int = 600) -> list:
+    """DIST_WORLD gloo ranks of this script, all on cuda:0; returns their
+    outputs in rank order."""
+    init = f"file://{work / f'rendezvous_{case}'}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--rank", case, str(work), str(r),
+         str(DIST_WORLD), init],
+        cwd=REPO, env=rank_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in range(DIST_WORLD)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"9 rank {r} of {case} exited {p.returncode}:\n{text[-3000:]}")
+    return [torch.load(work / f"out_{case}_{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+
+
+def torchrun(argv, timeout: int = 600) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
+    with these arguments (NCCL at world size 1: the card host has one GPU);
+    returns (stdout, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         *map(str, argv)],
+        cwd=REPO, env=rank_env(), capture_output=True, text=True, timeout=timeout,
+    )
+    check(proc.returncode == 0, f"torchrun {argv[:2]} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+STEP_DTYPES = {"f64": torch.float64, "f32": torch.float32}
+
+
+def one_step(cfg, dev, x, eps, dtype: str, mesh=None) -> dict:
+    """One training step from the seeded weights on rows ``x`` with their
+    ``eps``, the model, the rows and ``eps`` in ``STEP_DTYPES[dtype]`` (the
+    caller turns TF32 off). Returns the metrics, the gradient as one flat
+    f64 CPU tensor (all-reduced under a mesh) and the step's host-clock
+    time."""
+    model = AE(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.to(dev, STEP_DTYPES[dtype])
+    opt = make_optimizer(cfg.optimizer, model.parameters(), state_dtype=cfg.opt_state_dtype)
+    step = make_train_step(cfg, model, opt, mesh)
+    x, eps = x.to(dev, STEP_DTYPES[dtype]), eps.to(dev, STEP_DTYPES[dtype])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(x, 0.5, eps=eps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"metrics": {k: float(v) for k, v in m.items()}, "ms": ms,
+            "grad": torch.cat([p.grad.reshape(-1) for p in model.parameters()]).double().cpu()}
+
+
+def rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def rank_step(spec: dict, mesh) -> dict:
+    """9b on one rank: the data-parallel step on its 64 rows, the gloo
+    all-reduce's time, then 10 device_sharded steps."""
+    from adaptive_voice_conversion_tpu_torch.core.mesh import all_reduce_mean, row_window
+    from adaptive_voice_conversion_tpu_torch.data.sharded import ShardedDeviceDataset
+
+    cfg = load_config(str(REPO / "examples" / "config.yaml"))
+    dev = torch.device("cuda:0")
+    torch.backends.cudnn.deterministic = True
+    x, eps = step_inputs(cfg, SEED + 90)
+    lo, hi, _ = row_window(mesh, x.shape[0] // mesh.n_data)
+    steps = {dt: one_step(cfg, dev, x[lo:hi], eps[lo:hi], dt, mesh) for dt in STEP_DTYPES}
+    flat = steps["f32"]["grad"].float().to(dev)
+    reduce_ms = []
+    for _ in range(5):
+        buf = flat.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean(mesh, buf)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    ds = SegmentDataset(spec["train_pkl"], spec["train_index"], cfg.data_loader.segment_size)
+    shard = ShardedDeviceDataset(ds, mesh, dev, dtype="float32")
+    model, opt = fresh_model(cfg, dev)
+    multi = make_device_data_train_step(cfg, model, opt, inner_steps=10, sharded_data=True, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = multi(shard.packed, shard.starts, SEED, 0).cpu().numpy()
+    multi_s = time.perf_counter() - t0
+    return {"steps": steps, "reduce_ms": reduce_ms, "rows": rows, "multi_s": multi_s,
+            "shard": (shard.packed.shape[0], shard.starts.shape[0], shard.dropped_segments)}
+
+
+def grid_mels(cfg, spec: dict, inf) -> tuple:
+    """The phase-5 grid's normalised source and target mels."""
+    mels = [get_spectrograms(p, cfg.signal)[0] for p in spec["srcs"] + spec["tars"]]
+    norm = [inf.normalize(m).astype(np.float32) for m in mels]
+    return norm[: len(spec["srcs"])], norm[len(spec["srcs"]):]
+
+
+def rank_serve(spec: dict, mesh) -> dict:
+    """9c on one rank: the grid over the mesh, the kernel's launches counted
+    from 0 around it, and its time."""
+    cfg = load_config(str(REPO / "examples" / "config.yaml"))
+    inf = Inferencer.from_torch_checkpoint(cfg, spec["ckpt"], spec["attr"], device="cuda:0",
+                                           gl_method="fused", mesh=mesh)
+    src_m, tar_m = grid_mels(cfg, spec, inf)
+    gl.griffin_lim_phases.launches = 0
+    wavs, mels = inf.convert_grid(src_m, tar_m, trim=False, return_mels=True)
+    launches = gl.griffin_lim_phases.launches
+    grid_ms = host_ms(lambda: inf.convert_grid(src_m, tar_m))  # every rank makes the same calls
+    return {"launches": launches, "wavs": wavs, "mels": mels, "grid_ms": grid_ms}
+
+
+def rank_nccl(spec: dict, mesh) -> dict:
+    """9d under torchrun (NCCL, world size 1): the all-reduce of the
+    gradient's flat buffer, and the step with the mesh and without it in
+    turns, TF32 on as cli.train runs."""
+    from adaptive_voice_conversion_tpu_torch.core.mesh import all_reduce_mean
+
+    cfg = load_config(str(REPO / "examples" / "config.yaml"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = sum(p.numel() for p in AE(cfg.model).parameters()) + 3
+    buf = torch.randn(n, device=dev)
+    reduce_ms = cuda_ms(lambda: all_reduce_mean(mesh, buf), reps=20)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    x = step_inputs(cfg, SEED + 90)[0].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    steps = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        model, opt = fresh_model(cfg, dev)
+        steps[name] = make_train_step(cfg, model, opt, m)
+    times = {"mesh": [], "none": []}
+    for name in ("mesh", "none", "none", "mesh"):
+        times[name].append(cuda_ms(lambda: steps[name](x, 0.01, generator=gen), reps=10, warmup=3))
+    return {"reduce_ms": reduce_ms, "n": n, "backend": torch.distributed.get_backend(),
+            "step_ms": times}
+
+
+RANK_CASES = {"step": rank_step, "serve": rank_serve, "nccl": rank_nccl}
+
+
+def rank_main(argv) -> None:
+    """One rank of phase 9: ``<case> <dir>`` under torchrun (NCCL), or
+    ``<case> <dir> <rank> <world> <init>`` for a gloo rank on cuda:0."""
+    from adaptive_voice_conversion_tpu_torch.core.mesh import init_multihost, make_mesh
+
+    case, work = argv[0], Path(argv[1])
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    if len(argv) > 2:
+        init_multihost(device="cuda:0", backend="gloo", init_method=argv[4],
+                       world_size=int(argv[3]), rank=int(argv[2]))
+    else:
+        init_multihost(device="cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mesh = make_mesh()
+        spec = json.loads((work / "spec.json").read_text())
+        out = RANK_CASES[case](spec, mesh)
+        torch.save(out, work / f"out_{case}_{mesh.rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dist_cli(card: str, d: Path) -> dict:
+    """9a: cli.train under torchrun, NCCL at world size 1, against 8d."""
+    dev_cfg = d / "config_device.yaml"
+    eval_flags = ("-eval_set", "in_test", "-eval_steps", 20)
+    out, cli_s = torchrun(["-m", "adaptive_voice_conversion_tpu_torch.cli.train",
+                           *train_argv(d, dev_cfg, "dist1", TRAIN_ITERS, *eval_flags), "--multihost"])
+    mesh_line = [ln for ln in out.splitlines() if ln.startswith("[mesh]")]
+    check(mesh_line == ["[mesh] nccl: 1 ranks, data x model = 1 x 1"],
+          f"9a: the CLI's process group: {mesh_line}")
+    got = read_series(d / "log_dist1", "init/ae_train")
+    want = read_series(d / "log_dev", "init/ae_train")
+    check(sorted(got) == sorted(want) == [9, 19, 29, 39], f"9a: summaries at {sorted(got)}, 8d's at {sorted(want)}")
+    return {"got": got, "want": want, "cli_s": cli_s,
+            "ckpts": sorted(q.name for q in (d / "dist1.ckpts").iterdir()),
+            "evals": sorted(read_series(d / "log_dist1", "init/ae_eval_in_test"))}
+
+
+def phase_dist_step(card: str, cfg, d: Path, work: Path) -> dict:
+    """9b: two gloo ranks' step against one process's, then the sharded
+    multi-step's ranks against each other."""
+    work.mkdir()
+    (work / "spec.json").write_text(json.dumps({
+        "train_pkl": str(d / "train_128.pkl"), "train_index": str(d / "train_samples_128.json")}))
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("step", work)
+    dev = torch.device("cuda")
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, eps = step_inputs(cfg, SEED + 90)
+        one = {dt: one_step(cfg, dev, x, eps, dt) for dt in STEP_DTYPES}
+        # each rank's rows alone, in f32: the order the card sums them in
+        b = x.shape[0] // DIST_WORLD
+        halves = [one_step(cfg, dev, x[k * b:(k + 1) * b], eps[k * b:(k + 1) * b], "f32")
+                  for k in range(DIST_WORLD)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    split = sum(h["grad"] for h in halves) / DIST_WORLD
+    worst = {"loss": 0.0, "grad_norm": 0.0, "f64": 0.0, "f32": 0.0, "f32_vs_whole": 0.0}
+    for r, out in enumerate(ranks):
+        for dt in STEP_DTYPES:
+            got, want = out["steps"][dt]["metrics"], one[dt]["metrics"]
+            for k in ("loss", "grad_norm"):
+                rel = abs(got[k] - want[k]) / abs(want[k])
+                check(rel <= TOL_DIST, f"9b rank {r} ({dt}): {k} {got[k]} vs one process "
+                      f"{want[k]}: relative {rel:.3e} > {TOL_DIST}")
+                worst[k] = max(worst[k], rel)
+        for dt, want, what in (
+            ("f64", one["f64"]["grad"], "in f64, against one process's step on the 128 rows"),
+            ("f32", split, "in f32, against the mean of one process's steps on each rank's 64 rows"),
+        ):
+            fro = rel_fro(out["steps"][dt]["grad"], want)
+            check(fro <= TOL_DIST, f"9b rank {r}: the all-reduced gradient {what}: relative "
+                  f"Frobenius {fro:.3e} > {TOL_DIST}")
+            worst[dt] = max(worst[dt], fro)
+        worst["f32_vs_whole"] = max(worst["f32_vs_whole"],
+                                    rel_fro(out["steps"]["f32"]["grad"], one["f32"]["grad"]))
+    worst["split_vs_whole"] = rel_fro(split, one["f32"]["grad"])
+    one_ms = {dt: s["ms"] for dt, s in one.items()}
+    one = one["f32"]["metrics"]
+    rows = [out["rows"] for out in ranks]
+    check(bool(np.isfinite(rows[0]).all()), "9b: the sharded multi-step's metrics are not finite")
+    check(all(np.array_equal(rows[0], r_) for r_ in rows[1:]),
+          "9b: the sharded multi-step's ranks report different metric rows")
+    check(ranks[0]["shard"][1] > 0 and ranks[0]["shard"][2] == ranks[1]["shard"][2],
+          f"9b: shards {[o['shard'] for o in ranks]}")
+    return {"ranks": ranks, "one": one, "one_ms": one_ms, "worst": worst}
+
+
+def phase_dist_serve(card: str, cfg, work: Path) -> dict:
+    """9c: the phase-5 grid served by two gloo ranks against one process."""
+    work.mkdir()
+    ns, nt = len(GRID_SRC_FRAMES), len(GRID_TAR_FRAMES)
+    srcs = [work / f"src{i}.wav" for i in range(ns)]
+    tars = [work / f"tar{j}.wav" for j in range(nt)]
+    for k, (path, n) in enumerate(zip(srcs + tars, GRID_SRC_FRAMES + GRID_TAR_FRAMES)):
+        make_wav(path, SIG.hop_length * (n - 1) / SIG.sr, 110.0 + 17.0 * k, SEED + 20 + k)
+    mels = [get_spectrograms(str(p), cfg.signal)[0] for p in srcs + tars]
+    _, attr_p, ckpt, _ = write_model_and_attr(work, cfg, mels)
+    spec = {"srcs": list(map(str, srcs)), "tars": list(map(str, tars)), "ckpt": str(ckpt),
+            "attr": str(attr_p)}
+    (work / "spec.json").write_text(json.dumps(spec))
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("serve", work)
+    for r, out in enumerate(ranks):
+        check(out["launches"] == 1, f"9c rank {r} launched the kernel {out['launches']} times, expected 1")
+        check(len(out["wavs"]) == len(out["mels"]) == ns * nt, f"9c rank {r} returned {len(out['wavs'])} pairs")
+    inf = Inferencer.from_torch_checkpoint(cfg, str(ckpt), str(attr_p), device="cuda", gl_method="fused")
+    src_m, tar_m = grid_mels(cfg, spec, inf)
+    _, one_mels = inf.convert_grid(src_m, tar_m, trim=False, return_mels=True)
+    exact = inf.convert_grid(src_m, tar_m, gl_method="exact", trim=False)
+    one_ms = host_ms(lambda: inf.convert_grid(src_m, tar_m))
+    mel_err, sc_gap = 0.0, -1.0
+    for k in range(ns * nt):
+        got = ranks[0]["mels"][k]
+        check(got.shape == one_mels[k].shape and all(np.array_equal(got, o["mels"][k]) for o in ranks[1:]),
+              f"9c pair {k}: ranks' mels differ or shape {got.shape} != {one_mels[k].shape}")
+        # compared as the model returns them (normalised), phase 5's scale
+        mel_err = max(mel_err, float(np.abs(inf.normalize(got) - inf.normalize(one_mels[k])).max()))
+        mag = mel_to_mag(torch.from_numpy(np.asarray(got, np.float32)), SIG).numpy()
+        sc_gap = max(sc_gap, _sc(mag, ranks[0]["wavs"][k]) - _sc(mag, exact[k]))
+    check(mel_err <= TOL_GRID_MEL, f"9c: mels over 2 ranks vs one process max|diff| {mel_err} > {TOL_GRID_MEL}")
+    check(sc_gap < 0.05, f"9c: a pair's fused SC exceeds the masked exact SC by {sc_gap} >= 0.05")
+    return {"ranks": ranks, "mel_err": mel_err, "sc_gap": sc_gap, "one_ms": one_ms}
+
+
+def phase_distribution(card: str, cfg, d: Path, resume_bound: float) -> dict:
+    """Phase 9 on the phase-7 corpus in ``d`` (8d's device-mode run in it)."""
+    t0 = time.perf_counter()
+    a = phase_dist_cli(card, d)
+    gap = largest_rel_diff(a["want"], a["got"], [9, 19, 29, 39])
+    check(gap <= resume_bound, f"9a: the torchrun run's loss differs from 8d's by {gap:.3e} > {resume_bound:.3e}")
+    check(a["ckpts"] == ["step_20.pt", "step_40.pt"] and a["evals"] == [19, 39],
+          f"9a: checkpoints {a['ckpts']}, evals at {a['evals']}")
+    log(f"[dist] 9a torchrun --standalone --nproc_per_node 1 -m ...cli.train --multihost, input_mode "
+        f"device, {TRAIN_ITERS} steps: process group nccl, world size 1, mesh 1 x 1; summaries at "
+        f"[9, 19, 29, 39], loss_rec {a['got'][9]['loss_rec']:.4f} -> {a['got'][39]['loss_rec']:.4f}; "
+        f"largest relative difference of loss against 8d's device-mode run {gap:.3e} (bound "
+        f"{resume_bound:.3e}, 7c's); checkpoints {a['ckpts']}, evals at {a['evals']}; "
+        f"{a['cli_s']:.1f} s wall clock ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        b = phase_dist_step(card, cfg, d, work / "step")
+        c = phase_dist_serve(card, cfg, work / "serve")
+        (work / "spec.json").write_text("{}")
+        _, nccl_s = torchrun([REPO / "chip_smoke.py", "--rank", "nccl", work])
+        n = torch.load(work / "out_nccl_0.pt", weights_only=False)
+    r0, w = b["ranks"][0], b["worst"]
+    n_grad = r0["steps"]["f32"]["grad"].numel()
+    log(f"[dist] 9b two gloo ranks sharing the card (cuda:0, TF32 off, cuDNN deterministic), one "
+        f"data-parallel step of 64 rows each against one process's step on the 128 rows, in f64 and "
+        f"in f32: loss (f32) {r0['steps']['f32']['metrics']['loss']:.6f} vs {b['one']['loss']:.6f}, "
+        f"largest relative difference of loss {w['loss']:.2e}, of grad_norm {w['grad_norm']:.2e} "
+        f"(tol {TOL_DIST}); the all-reduced gradient ({n_grad} entries), relative Frobenius: in f64 "
+        f"against one process's 128 rows {w['f64']:.2e}, in f32 against the mean of one process's "
+        f"two 64-row steps {w['f32']:.2e} (tol {TOL_DIST} each)")
+    log(f"[dist] 9b in f32 the card sums 64 rows in another order than 128: one process's 128-row "
+        f"gradient and the mean of its two 64-row gradients are {w['split_vs_whole']:.2e} apart "
+        f"(relative Frobenius), and the ranks' {w['f32_vs_whole']:.2e} from the 128 rows")
+    log(f"[dist] 9b device_sharded multi-step, 10 steps, 2 ranks: shards of {r0['shard'][0]} rows and "
+        f"{r0['shard'][1]} starts each ({r0['shard'][2]} segments dropped to balance them); the ranks' "
+        f"(10, 4) metric rows equal bit for bit; loss_rec {r0['rows'][0, 1]:.4f} -> {r0['rows'][-1, 1]:.4f}")
+    log(f"[dist] 9c the 4 x 8 grid served by two gloo ranks on the card, --gl_method fused: "
+        f"griffin_lim_phases launches per rank {[o['launches'] for o in c['ranks']]} (16 pairs each, "
+        f"16 x 128 = 2048 kernel rows); every rank returned all 32 pairs; mels against the one-process "
+        f"grid max|diff| {c['mel_err']:.3e} (tol {TOL_GRID_MEL}); largest per-pair fused SC minus "
+        f"masked exact SC {c['sc_gap']:.5f} (must be < 0.05)")
+    log(f"[time] dist, two ranks sharing one card (not scaling): the step on 64 rows "
+        f"{', '.join(f'{o['steps']['f32']['ms']:.1f}' for o in b['ranks'])} ms per rank in f32 "
+        f"and {', '.join(f'{o['steps']['f64']['ms']:.1f}' for o in b['ranks'])} ms in f64, "
+        f"against one process on 128 rows {b['one_ms']['f32']:.1f} and {b['one_ms']['f64']:.1f} ms "
+        f"(TF32 off, cuDNN deterministic, first step, host clock); "
+        f"the gloo all-reduce of the {n_grad}-float gradient staged through the host "
+        f"{np.median(r0['reduce_ms']):.1f} ms (median of 5, rank 0); the sharded 10-step call "
+        f"{r0['multi_s']:.2f} s; the grid {', '.join(f'{o['grid_ms']:.1f}' for o in c['ranks'])} ms "
+        f"per rank against {c['one_ms']:.1f} ms in one process (host clock, median of 3) ({card})")
+    log(f"[time] dist, NCCL at world size 1 (torchrun, {nccl_s:.1f} s wall): all_reduce_mean of the "
+        f"{n['n']}-float buffer {n['reduce_ms']:.4f} ms (CUDA events, mean of 20); the step at TF32 on "
+        f"with the mesh {', '.join(f'{v:.2f}' for v in n['step_ms']['mesh'])} ms and without it "
+        f"{', '.join(f'{v:.2f}' for v in n['step_ms']['none'])} ms (CUDA events, mean of 10, in turns "
+        f"mesh, none, none, mesh) ({card})")
+    log(f"[dist] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return {"dist_serve_launches": c["ranks"][0]["launches"]}
+
+
 def config_copy(d: Path, name: str, **changes) -> Path:
     """examples/config.yaml with these top-level fields changed, in ``d``."""
     cfg = dataclasses.replace(load_config(str(REPO / "examples" / "config.yaml")), **changes)
@@ -1648,6 +2047,7 @@ def phase_training(card: str) -> dict:
         out = phase_train_cli(card, d, config_copy(d, "config_host.yaml", input_mode="host"))
         out.update(phase_train_times(card, cfg, d))
         out.update(phase_data_modes(card, cfg, d, out))
+        out.update(phase_distribution(card, cfg, d, out["resume_bound"]))
     return out
 
 
@@ -1672,6 +2072,7 @@ def main() -> None:
             "convert_grid CLI": serving["launches"],
             "train -> serve CLI": training["serve_launches"],
             "train (device mode) -> serve CLI": training["device_serve_launches"],
+            "convert_grid over 2 ranks (per rank)": training["dist_serve_launches"],
         },
         "max_abs_err": kern["a"]["max_abs_err"],
         "ms": times["main"]["ms"],
@@ -1689,4 +2090,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

@@ -262,14 +262,33 @@ def test_chunk_planning_equals_jax(artifacts, storage, chunk_rows, inner_steps, 
 
 
 def test_chunk_set_repeats_and_mesh_raises(artifacts):
+    """set_repeats as the JAX streamer's; with a mesh of 3 ranks R (64: four
+    segments) is rounded down to a multiple of 3 as the JAX planning rounds
+    it over a 3-device data axis, and each rank's put_chunk ships its third of the
+    chunk's rows (the all-gather that completes it, in acquire, is held by
+    tests/test_torch_dist_solver.py)."""
+    from adaptive_voice_conversion_tpu.core.mesh import make_mesh as j_make_mesh
+    from adaptive_voice_conversion_tpu_torch.core.mesh import Mesh
+
     ref, ours, ds = chunk_pair(artifacts, "float32", 40, 2, 1)
     ours.set_repeats(4)
     ref.set_repeats(4)
     assert ours.repeats == 4 and ours._epoch_visits(1) == ref._epoch_visits(1)
     ours.set_repeats(0)
     assert ours.repeats == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ChunkedDeviceStreamer(ds, 40 * N_MELS * 4, batch_size=4, mesh=object())
+    jds, _ = pair(artifacts, "float32")
+    kw = dict(batch_size=4, inner_steps=2, seed=3)
+    j3 = JChunked(jds, 40 * N_MELS * 4, mesh=j_make_mesh(3, devices=jax.devices()[:3]), **kw)
+    for rank in range(3):
+        mesh = Mesh(3, 1, rank, 3, None, torch.device("cpu"))
+        ours3 = ChunkedDeviceStreamer(ds, 40 * N_MELS * 4, mesh=mesh, **kw)
+        assert (ours3.R, ours3.n_chunks, ours3.dropped_segments) == (j3.R, j3.n_chunks, j3.dropped_segments)
+        np.testing.assert_array_equal(ours3.starts_padded, j3.starts_padded)
+        part = ours3.put_chunk(1)
+        third = ours3.R // 3
+        assert ours3.R == 63 and ours3.last_h2d_rows == third and part.mesh is mesh
+        lo = ours3.R + third * rank
+        np.testing.assert_array_equal(part.packed.numpy(), ds.packed[lo : lo + third])
 
 
 # -- the multi-step trainer ----------------------------------------------------
@@ -333,5 +352,5 @@ def test_multi_step_padded_starts_equals_plain(artifacts, storage):
     assert torch.isfinite(a).all()
     for p, q in zip(m1.state_dict().values(), m2.state_dict().values()):
         torch.testing.assert_close(p, q, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         make_device_data_train_step(cfg, m1, o1, sharded_data=True)

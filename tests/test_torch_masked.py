@@ -378,5 +378,8 @@ def test_griffin_lim_masked_fused_tracks_jax_and_exact():
         s_f, s_j, s_e = (sc(w[i, :n], mags[i]) for w in (w_fused, w_jax, w_exact))
         assert abs(s_f - s_j) < 0.01, (i, s_f, s_j)
         assert s_f < s_e + 0.05, (i, s_f, s_e)
+    # "pallas", the JAX package's name, is the same schedule; others raise
+    w_alias = griffin_lim_masked(torch.from_numpy(mag_b), lens, T_SIG, n_iter=n_it, method="pallas")
+    np.testing.assert_array_equal(w_alias.numpy(), w_fused)
     with pytest.raises(ValueError):
-        griffin_lim_masked(torch.from_numpy(mag_b), lens, T_SIG, n_iter=2, method="pallas")
+        griffin_lim_masked(torch.from_numpy(mag_b), lens, T_SIG, n_iter=2, method="fast")

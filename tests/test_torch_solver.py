@@ -32,7 +32,6 @@ from adaptive_voice_conversion_tpu_torch.core.config import (
     config_to_dict,
     load_config,
 )
-from adaptive_voice_conversion_tpu_torch.data.chunked import ChunkedDeviceStreamer
 from adaptive_voice_conversion_tpu_torch.infer.inferencer import Inferencer
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
 from adaptive_voice_conversion_tpu_torch.train.solver import Solver, SolverArgs, step_seed
@@ -287,21 +286,23 @@ def test_defaults_need_a_gpu_and_unported_paths_raise(data_dir):
         with pytest.raises(RuntimeError, match="cuda"):
             Inferencer.from_train_checkpoint(TINY, str(data_dir / "model"), str(data_dir / "attr.pkl"))
     assert cli_train.build_parser().parse_args([]).device == "cuda"
-    # the data modes construct; device_sharded falls back to device on one
-    # device, and only the multi-GPU branches raise
+    # the data modes construct; device_sharded falls back to device without
+    # a data axis of 2 or more (the JAX rule), and a sharded multi-step
+    # needs a mesh
     for mode, want in (("device", "device"), ("device_sharded", "device"), ("chunked", "chunked")):
         solver = Solver(dataclasses.replace(TINY, input_mode=mode), make_args(data_dir), device="cpu")
         assert solver.data_mode == want
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         make_device_data_train_step(TINY, solver.model, solver.optimizer, sharded_data=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ChunkedDeviceStreamer(solver.dataset, 10_000, batch_size=8, mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
         Solver(dataclasses.replace(TINY, opt_fused="bucketed4"), make_args(data_dir), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # one process is one rank: more needs torchrun, and --multihost without
+    # torchrun's environment raises before any process group starts
+    with pytest.raises(ValueError, match="torchrun"):
         cli_train.main(cli_argv(data_dir, cfg_path, "--device", "cpu", "--n_data", "2"))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli_train.main(cli_argv(data_dir, cfg_path, "--device", "cpu", "--multihost"))
+    assert not torch.distributed.is_initialized()
     with pytest.raises(FileNotFoundError):
         Inferencer.from_train_checkpoint(
             TINY, str(data_dir / "never_trained"), str(data_dir / "attr.pkl"), device="cpu"

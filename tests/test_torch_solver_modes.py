@@ -33,13 +33,13 @@ def data_dir(tmp_path):
     return tmp_path
 
 
-def jax_twin(cfg, args):
-    """A JAX Solver over the same config and arguments, set up only as far
-    as its data (``_load_data``): no model is built."""
+def jax_twin(cfg, args, mesh=None):
+    """A JAX Solver over the same config and arguments (and JAX mesh), set
+    up only as far as its data (``_load_data``): no model is built."""
     js = jsolver.Solver.__new__(jsolver.Solver)
     js.config = j_config_from_dict(config_to_dict(cfg))
     js.args = jsolver.SolverArgs(**dataclasses.asdict(args))
-    js.mesh = None
+    js.mesh = mesh
     js.iteration = 0
     js._load_data()
     return js
