@@ -5,10 +5,13 @@ work on a ``(data, model)`` device mesh. The port runs one process per
 device instead, and a rank is one device: the mesh ``(n_data, n_model)`` is
 a grid of ranks, rank ``r`` at data index ``r // n_model`` and model index
 ``r % n_model`` (the order of the JAX ``make_mesh``'s
-``reshape(n_data, n_model)``). The model is replicated on every rank; each
-data index holds a contiguous block of rows of every global batch, and the
-gradients are averaged over the data axis by one all-reduce a step
-(train/step.py).
+``reshape(n_data, n_model)``). Each data index holds a contiguous block of
+rows of every global batch, and every rank of one data index (one model
+group) holds the same rows. The gradients are averaged over the data axis
+by one all-reduce a step (train/step.py), within each data group: the ranks
+that share a model index. Along the model axis the parameters are either
+replicated or, after ``parallel/tp.py``'s ``shard_params_tp``, split over
+the model group's ranks (tensor parallelism).
 
 The collectives go through the helpers at the end of this module, on
 ``Mesh.comm_device``: the rank's GPU under NCCL, the CPU under gloo. So two
@@ -17,8 +20,7 @@ nothing relies on gloo's CUDA support.
 
 The backend follows the device: ``nccl`` for ``cuda``, ``gloo`` for
 ``cpu``. A process group that fails to start raises; nothing falls back to
-another backend or to one process. Tensor parallelism (``n_model`` > 1) is
-not ported yet.
+another backend or to one process.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ class Mesh:
     n_model: int
     rank: int
     world_size: int
-    group: Any  # the data axis's process group
+    group: Any  # the data axis's process group: this rank's data group
     comm_device: torch.device  # where the collectives run
+    model_group: Any = None  # this rank's model group (n_model > 1)
 
     @property
     def data_index(self) -> int:
@@ -107,25 +110,32 @@ def init_multihost(
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
     """The ``(n_data, n_model)`` grid over the started process group.
 
-    Raises unless ``n_data * n_model`` is the world size, and for
-    ``n_model`` > 1: tensor parallelism is ROADMAP item 10d (slice 7)."""
+    Raises unless ``n_data * n_model`` is the world size. With ``n_model``
+    > 1 every rank creates, in the same order, one data group per model
+    index (the ranks that share it: ``Mesh.group``) and one model group per
+    data index (``Mesh.model_group``); with ``n_model`` 1 the data group is
+    the world."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call init_multihost first")
     world = dist.get_world_size()
     if n_data is None:
         n_data = world // n_model
-    if n_data * n_model != world:
+    if n_model < 1 or n_data * n_model != world:
         raise ValueError(f"mesh {n_data}x{n_model} does not cover {world} ranks")
-    if n_model > 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: tensor parallelism (parallel/tp.py) is ROADMAP "
-            "item 10d (slice 7) and is not ported yet"
-        )
+    rank = dist.get_rank()
     comm = (
         torch.device("cuda", torch.cuda.current_device())
         if dist.get_backend() == "nccl" else torch.device("cpu")
     )
-    return Mesh(n_data, n_model, dist.get_rank(), world, dist.group.WORLD, comm)
+    if n_model == 1:
+        return Mesh(n_data, 1, rank, world, dist.group.WORLD, comm)
+    # dist.new_group is collective: every rank creates every group
+    data_groups = [dist.new_group([d * n_model + m for d in range(n_data)])
+                   for m in range(n_model)]
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)])
+                    for d in range(n_data)]
+    return Mesh(n_data, n_model, rank, world, data_groups[rank % n_model], comm,
+                model_groups[rank // n_model])
 
 
 def local_batch_size(global_batch_size: int, mesh: Mesh) -> int:
@@ -181,12 +191,13 @@ def _tensors(tree) -> List[torch.Tensor]:
 @torch.no_grad()
 def replicate_pytree(tree, mesh: Mesh):
     """Broadcast every tensor of a nested dict / list / tuple (a model's
-    ``state_dict()``, an optimiser's ``state``) from rank 0, in place, so
-    that every rank starts from rank 0's values. Returns ``tree``."""
+    ``state_dict()``, an optimiser's ``state``) from rank 0 to every rank of
+    the mesh, in place, so that every rank starts from rank 0's values.
+    Returns ``tree``."""
     for t in _tensors(tree):
         flat = t.detach().view(-1)  # state tensors are contiguous
         buf = _as_wire(flat).to(mesh.comm_device)
-        dist.broadcast(buf, src=0, group=mesh.group)
+        dist.broadcast(buf, src=0)
         _as_wire(flat).copy_(buf)
     return tree
 

@@ -20,6 +20,19 @@ under ``no_grad`` and ``sigma = u'^T W v`` differentiable through ``W``.
 The forward never moves the stored ``u``: ``spectral_norm_update`` advances
 it, and the training step calls that once per step, on the weights the step
 started from.
+
+*Tensor parallelism* (parallel/tp.py): ``shard_params_tp`` gives each layer
+it splits over the model axis a ``tp`` attribute, and the same forward then
+runs on this rank's channels. A column-parallel layer (output channels
+split) takes its full input through Megatron's ``copy`` and its output is
+gathered back into the one-process channel order, except inside a Megatron
+pair: there the first layer's channels stay on their rank through the
+instance norm, the AdaIN affine, the activation and dropout (masks drawn
+at the full shape and sliced), and the second, row-parallel layer (input
+channels split) sums its partial products over the model axis (``reduce``)
+before it adds its replicated bias. Spectral norm takes its power iteration
+and ``sigma`` over the whole matrix. A layer without ``tp`` runs as in one
+process, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,20 +56,48 @@ from ..ops.resample import (
 SN_EPS = 1e-12
 
 
-def _normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / (torch.linalg.vector_norm(x) + SN_EPS)
+def _normalize(x: torch.Tensor, tp=None, phase: str = "forward") -> torch.Tensor:
+    """``x / |x|``; with ``tp``, x is this rank's block of a vector split over
+    the model axis and the squares are summed over it."""
+    if tp is None:
+        return x / (torch.linalg.vector_norm(x) + SN_EPS)
+    return x / (tp.axis.sum(x.square().sum(), phase).sqrt() + SN_EPS)
 
 
-def spectral_normalize(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def _sn_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The (O, -1) matrix of a weight, in f32 or wider."""
+    return w.reshape(w.shape[0], -1).to(torch.promote_types(w.dtype, torch.float32))
+
+
+def _power_iteration(wm: torch.Tensor, u: torch.Tensor, tp=None, phase: str = "forward"):
+    """``(v, u2)``: ``v = W^T u / |.|``, ``u2 = W v / |.|``. With a column
+    split ``wm`` and ``u`` are this rank's rows and ``v`` comes out whole;
+    with a row split ``wm`` and ``v`` are this rank's block of the flattened
+    ``(in, k)`` columns and ``u`` is whole."""
+    col = tp is not None and tp.kind == "column"
+    row = tp is not None and tp.kind == "row"
+    wtu = wm.t() @ u
+    v = _normalize(tp.axis.sum(wtu, phase) if col else wtu, tp if row else None, phase)
+    wv = wm @ v
+    u2 = _normalize(tp.axis.sum(wv, phase) if row else wv, tp if col else None, phase)
+    return v, u2
+
+
+def spectral_normalize(w: torch.Tensor, u: torch.Tensor, tp=None) -> torch.Tensor:
     """``w / sigma`` for a weight (O, ...) and its stored vector ``u`` (O,):
     one power iteration on the detached (O, -1) matrix, then
     ``sigma = u'^T W v`` with the gradient through ``W``, so d(w/sigma)/dw
-    keeps the ``-W u' v^T / sigma^2`` term."""
-    wm = w.reshape(w.shape[0], -1).float()
+    keeps the ``-W u' v^T / sigma^2`` term. With ``tp`` (a layer split over
+    the model axis) ``w`` is this rank's shard and ``sigma`` is the whole
+    matrix's: the ranks' partial dot products go through ``reduce``, and
+    since every rank divides its own shard by it, ``sigma`` then goes
+    through ``copy``, whose backward sums its gradient over the ranks."""
+    wm = _sn_matrix(w)
     with torch.no_grad():
-        v = _normalize(wm.t() @ u)
-        u2 = _normalize(wm @ v)
+        v, u2 = _power_iteration(wm, u, tp)
     sigma = torch.dot(u2, wm @ v)
+    if tp is not None:
+        sigma = tp.axis.copy(tp.axis.reduce(sigma))
     return w / sigma.to(w.dtype)
 
 
@@ -81,20 +122,20 @@ class _SpectralNormLayer(nn.Module):
             self.weight_v.copy_(_normalize(self._matrix().t() @ self.weight_u))
 
     def _matrix(self) -> torch.Tensor:
-        return self.weight_orig.detach().reshape(self.weight_orig.shape[0], -1).float()
+        return _sn_matrix(self.weight_orig.detach())
 
     @property
     def weight(self) -> torch.Tensor:
-        return spectral_normalize(self.weight_orig, self.weight_u)
+        return spectral_normalize(self.weight_orig, self.weight_u, _split(self))
 
     @torch.no_grad()
     def power_iteration(self) -> None:
         """Advance the stored ``u`` (and ``v``) by one power iteration on
-        the current ``weight_orig``."""
-        wm = self._matrix()
-        v = _normalize(wm.t() @ self.weight_u)
+        the current ``weight_orig`` (this rank's shards of them under
+        tensor parallelism)."""
+        v, u = _power_iteration(self._matrix(), self.weight_u, _split(self), "update")
         self.weight_v.copy_(v)
-        self.weight_u.copy_(_normalize(wm @ v))
+        self.weight_u.copy_(u)
 
 
 class SpectralNormConv1d(_SpectralNormLayer):
@@ -122,51 +163,98 @@ def bank_kernel_sizes(cfg) -> list:
     return list(range(cfg.bank_scale, cfg.bank_size + 1, cfg.bank_scale))
 
 
-def _conv(layer, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def _split(layer):
+    """The layer's place on the model axis (parallel/tp.py ``Split``), or
+    None when it is whole on this rank."""
+    return getattr(layer, "tp", None)
+
+
+def _channels(layer, y: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """Where ``y``, the output ``layer`` left on this rank (``full=False``),
+    sits in the full channel axis: ``(lo, hi, C)``, or None when whole."""
+    tp = _split(layer)
+    return None if tp is None else tp.axis.window(y.shape[1])
+
+
+def _layer(op, layer, x, compute_dtype, full: bool, bias_shape) -> torch.Tensor:
+    """``op(x, weight, bias)`` with the layer's model-axis split (module
+    docstring); ``full=False`` leaves a column-parallel layer's output on
+    this rank's channels."""
+    tp = _split(layer)
+    if tp is None:
+        return op(x, layer.weight, layer.bias, compute_dtype)
+    if tp.kind == "row":
+        out = tp.axis.reduce(op(x, layer.weight, None, compute_dtype))
+        return out + layer.bias.to(out.dtype).view(bias_shape)
+    out = op(tp.axis.copy(x), layer.weight, layer.bias, compute_dtype)
+    return tp.axis.gather(out, tp.groups) if full else out
+
+
+def _conv(layer, x: torch.Tensor, compute_dtype=None, full: bool = True) -> torch.Tensor:
     """``layer.weight`` is the parameter of an ``nn.Conv1d`` and the
     normalised weight of a ``SpectralNormConv1d``."""
-    return conv1d(
-        x, layer.weight, layer.bias, stride=layer.stride[0], compute_dtype=compute_dtype
-    )
+    op = lambda x, w, b, cd: conv1d(x, w, b, stride=layer.stride[0], compute_dtype=cd)
+    return _layer(op, layer, x, compute_dtype, full, (-1, 1))
 
 
-def _dense(layer, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    return dense(x, layer.weight, layer.bias, compute_dtype=compute_dtype)
+def _dense(layer, x: torch.Tensor, compute_dtype=None, full: bool = True) -> torch.Tensor:
+    op = lambda x, w, b, cd: dense(x, w, b, compute_dtype=cd)
+    return _layer(op, layer, x, compute_dtype, full, (-1,))
 
 
 def _bank(layers: nn.ModuleList, x, kernel_sizes, act, compute_dtype=None) -> torch.Tensor:
-    return conv_bank(
-        x, [c.weight for c in layers], [c.bias for c in layers], kernel_sizes, act,
-        compute_dtype=compute_dtype,
-    )
+    ws, bs = [c.weight for c in layers], [c.bias for c in layers]
+    tp = _split(layers[0])
+    if tp is None:
+        return conv_bank(x, ws, bs, kernel_sizes, act, compute_dtype=compute_dtype)
+    # every bank conv is column-parallel: this rank's [k_1 | k_2 | ...]
+    # channels, gathered rank-major and put back in the one-process order
+    # [k_1 | k_2 | ...]; x itself is appended whole, outside the copy
+    out = conv_bank(tp.axis.copy(x), ws, bs, kernel_sizes, act, compute_dtype=compute_dtype)
+    out = tp.axis.gather(out[:, : -x.shape[1]], len(layers))
+    return torch.cat([out, x.to(out.dtype)], dim=1)
 
 
 def global_draw(
     draw, shape, rows: Optional[Tuple[int, int, int]], device: torch.device,
     generator: Optional[torch.Generator],
+    channels: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """``draw(shape)`` from ``generator``; with a row window ``(lo, hi,
     B_global)`` (a rank's rows of the global batch, core/mesh.py
     ``row_window``) the draw is made at the global shape ``(B_global,
     *shape[1:])`` and rows ``lo:hi`` are kept, so N ranks draw what one
-    process draws for the whole batch."""
-    if rows is None:
+    process draws for the whole batch. A channel window ``(lo, hi, C)`` (a
+    rank's channels of an activation split over the model axis) does the
+    same along axis 1."""
+    if rows is None and channels is None:
         return draw(shape, generator=generator, device=device)
-    lo, hi, b_global = rows
-    return draw((b_global, *shape[1:]), generator=generator, device=device)[lo:hi]
+    full = list(shape)
+    if rows is not None:
+        full[0] = rows[2]
+    if channels is not None:
+        full[1] = channels[2]
+    out = draw(tuple(full), generator=generator, device=device)
+    if rows is not None:
+        out = out[rows[0] : rows[1]]
+    if channels is not None:
+        out = out[:, channels[0] : channels[1]]
+    return out
 
 
 def dropout(
     x: torch.Tensor, rate: float, generator: Optional[torch.Generator], training: bool,
     rows: Optional[Tuple[int, int, int]] = None,
+    channels: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (on x's
-    device), at the global batch shape when ``rows`` is given. The identity
-    in eval mode, at rate 0, or without a generator."""
+    device), at the global batch shape when ``rows`` is given and at the
+    full channel count when ``channels`` is. The identity in eval mode, at
+    rate 0, or without a generator."""
     if not training or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = global_draw(torch.rand, x.shape, rows, x.device, generator) < keep
+    mask = global_draw(torch.rand, x.shape, rows, x.device, generator, channels) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -221,20 +309,20 @@ class SpeakerEncoder(nn.Module):
         compute_dtype: Optional[torch.dtype] = None, rows=None,
     ) -> torch.Tensor:
         act, cd = self.act, compute_dtype
-        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training, rows)
+        drop = lambda y, ch=None: dropout(y, self.cfg.dropout_rate, generator, self.training, rows, ch)
         out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
         out = act(_conv(self.in_conv_layer, out, cd))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):
-            y = drop(act(_conv(first, out, cd)))
-            y = drop(act(_conv(second, y, cd)))
+            y = act(_conv(first, out, cd, full=False))
+            y = drop(act(_conv(second, drop(y, _channels(first, y)), cd)))
             sub = second.stride[0]
             if sub > 1:
                 out = avg_pool_time_ceil(out, sub)
             out = y + out
         out = global_avg_pool_time(out)
         for first, second in zip(self.first_dense_layers, self.second_dense_layers):
-            y = drop(act(_dense(first, out, cd)))
-            out = drop(act(_dense(second, y, cd))) + out
+            y = act(_dense(first, out, cd, full=False))
+            out = drop(act(_dense(second, drop(y, _channels(first, y)), cd))) + out
         return _dense(self.output_layer, out, cd)
 
 
@@ -267,13 +355,13 @@ class ContentEncoder(nn.Module):
         compute_dtype: Optional[torch.dtype] = None, rows=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         act, cd = self.act, compute_dtype
-        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training, rows)
+        drop = lambda y, ch=None: dropout(y, self.cfg.dropout_rate, generator, self.training, rows, ch)
         out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
         # instance norm before every activation
         out = drop(act(instance_norm_time(_conv(self.in_conv_layer, out, cd))))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):
-            y = drop(act(instance_norm_time(_conv(first, out, cd))))
-            y = drop(act(instance_norm_time(_conv(second, y, cd))))
+            y = act(instance_norm_time(_conv(first, out, cd, full=False)))
+            y = drop(act(instance_norm_time(_conv(second, drop(y, _channels(first, y)), cd))))
             sub = second.stride[0]
             if sub > 1:
                 out = avg_pool_time_ceil(out, sub)
@@ -311,11 +399,14 @@ class Decoder(nn.Module):
         compute_dtype: Optional[torch.dtype] = None, rows=None,
     ) -> torch.Tensor:
         act, cd = self.act, compute_dtype
-        drop = lambda y: dropout(y, self.cfg.dropout_rate, generator, self.training, rows)
+        drop = lambda y, ch=None: dropout(y, self.cfg.dropout_rate, generator, self.training, rows, ch)
         out = drop(act(instance_norm_time(_conv(self.in_conv_layer, z, cd))))
         for l, up in enumerate(self.cfg.upsample[: self.cfg.n_conv_blocks]):
-            y = instance_norm_time(_conv(self.first_conv_layers[l], out, cd))
-            y = drop(act(adain(y, _dense(self.conv_affine_layers[2 * l], cond, cd))))
+            first = self.first_conv_layers[l]
+            y = instance_norm_time(_conv(first, out, cd, full=False))
+            # a split pair's affine gives this rank's (mean, std) rows
+            cond1 = _dense(self.conv_affine_layers[2 * l], cond, cd, full=_split(first) is None)
+            y = drop(act(adain(y, cond1)), _channels(first, y))
             y = _conv(self.second_conv_layers[l], y, cd)
             if up > 1:
                 y = pixel_shuffle_time(y, up)

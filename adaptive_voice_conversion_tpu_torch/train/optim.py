@@ -88,12 +88,10 @@ class TorchAdam(torch.optim.Optimizer):
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
             raise ValueError("TorchAdam.step takes no closure")
-        grads_all = [
-            p.grad for g in self.param_groups for p in g["params"] if p.grad is not None
-        ]
+        with_grad = [p for g in self.param_groups for p in g["params"] if p.grad is not None]
         # the global norm over every group, before clipping
-        norms = torch._foreach_norm(grads_all)
-        total = torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
+        norms = torch._foreach_norm([p.grad for p in with_grad])
+        total = global_norm(with_grad, norms)
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -150,6 +148,22 @@ class TorchAdam(torch.optim.Optimizer):
                     if amsgrad:
                         st["max_exp_avg_sq"].copy_(vh_i)
         return total
+
+
+def global_norm(params, norms) -> torch.Tensor:
+    """The norm of all the gradients from each one's norm. A parameter split
+    over the model axis (``p.tp``, set by parallel/tp.py
+    ``shard_params_tp``) holds this rank's shard of its gradient: the
+    squares of those are summed over the model axis, and a replicated
+    parameter, whole on every rank, is counted once."""
+    norms = torch.stack([n.float() for n in norms])
+    split = [getattr(p, "tp", None) for p in params]
+    axis = next((tp.axis for tp in split if tp is not None), None)
+    if axis is None:
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor([tp is not None for tp in split], device=norms.device)
+    sq = norms.square()
+    return (axis.sum(sq[mask].sum(), "update") + sq[~mask].sum()).sqrt()
 
 
 def make_optimizer(

@@ -68,12 +68,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      gloo ranks with --gl_method fused, one kernel launch per rank, mels
      against the one-process grid, each pair's SC against the masked exact
      vocoder's; (d) the all-reduce's and the step's times under NCCL at world
-     size 1 and over gloo. Times of ranks that share one card, not scaling.
+     size 1 and over gloo. Times of ranks that share one card, not scaling;
+ 10. tensor parallelism at the same width: (a) entry() on the card against
+     the same function on the CPU; (b) dp2 x tp2, four gloo ranks sharing
+     the card (TF32 off, cuDNN deterministic), one step on a global batch of
+     16 rows against one process's step on them, in f64 with and without
+     spectral norm and in f32, the ranks of each model group equal; (c)
+     dryrun_multichip(1) under NCCL at world size 1 and
+     dryrun_multichip(4, backend="gloo") on the card; (d) the scaling sweep
+     at sizes 1 and 2, which stops at 2 on a one-GPU host; (e) the
+     tensor-parallel step's times, its model-axis collectives and the share
+     of the step the gloo collectives take. Ranks sharing one card, not
+     scaling.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
 Run as ``chip_smoke.py --rank <case> <dir> [<rank> <world> <init>]`` it is
-one rank of phase 9, started by the script itself.
+one rank of phase 9 or 10b, started by the script itself.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1695,15 +1706,15 @@ def rank_env() -> dict:
     return env
 
 
-def spawn_ranks(case: str, work: Path, timeout: int = 600) -> list:
-    """DIST_WORLD gloo ranks of this script, all on cuda:0; returns their
+def spawn_ranks(case: str, work: Path, timeout: int = 600, world: int = DIST_WORLD) -> list:
+    """``world`` gloo ranks of this script, all on cuda:0; returns their
     outputs in rank order."""
     init = f"file://{work / f'rendezvous_{case}'}"
     procs = [subprocess.Popen(
         [sys.executable, str(REPO / "chip_smoke.py"), "--rank", case, str(work), str(r),
-         str(DIST_WORLD), init],
+         str(world), init],
         cwd=REPO, env=rank_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    ) for r in range(DIST_WORLD)]
+    ) for r in range(world)]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -1712,8 +1723,8 @@ def spawn_ranks(case: str, work: Path, timeout: int = 600) -> list:
                 p.kill()
                 p.wait()
     for r, (p, text) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"9 rank {r} of {case} exited {p.returncode}:\n{text[-3000:]}")
-    return [torch.load(work / f"out_{case}_{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+        check(p.returncode == 0, f"rank {r} of {case} exited {p.returncode}:\n{text[-3000:]}")
+    return [torch.load(work / f"out_{case}_{r}.pt", weights_only=False) for r in range(world)]
 
 
 def torchrun(argv, timeout: int = 600) -> tuple:
@@ -1838,11 +1849,62 @@ def rank_nccl(spec: dict, mesh) -> dict:
             "step_ms": times}
 
 
-RANK_CASES = {"step": rank_step, "serve": rank_serve, "nccl": rank_nccl}
+def rank_tp(spec: dict, mesh) -> dict:
+    """10b on one rank of the (dp2, tp2) mesh: one tensor-parallel step per
+    variant on this rank's rows, its gathered gradient and its model-axis
+    collectives; then the f32 step's second call timed, and the data-axis
+    all-reduce of this rank's gradient buffer."""
+    from adaptive_voice_conversion_tpu_torch.core.mesh import all_reduce_mean, make_mesh, row_window
+    from adaptive_voice_conversion_tpu_torch.parallel.tp import (
+        gather_tp,
+        make_tp_train_step,
+        shard_params_tp,
+    )
+
+    base = load_config(str(REPO / "examples" / "config.yaml"))
+    dev = torch.device("cuda:0")
+    torch.backends.cudnn.deterministic = True
+    tp_mesh = make_mesh(n_data=TP_DATA, n_model=TP_MODEL)
+    x, eps = (t[:TP_ROWS] for t in step_inputs(base, SEED + 100))
+    lo, hi, _ = row_window(tp_mesh, TP_ROWS // TP_DATA)
+    out = {"index": (tp_mesh.data_index, tp_mesh.model_index)}
+    for name, dtype, sn in TP_VARIANTS:
+        cfg = with_sn(base, sn)
+        model = AE(cfg.model)
+        init_parameters(model, torch.Generator().manual_seed(SEED))
+        model.to(dev, STEP_DTYPES[dtype])
+        shard_params_tp(model, tp_mesh)
+        opt = make_optimizer(cfg.optimizer, model.parameters(), state_dtype=cfg.opt_state_dtype)
+        step = make_tp_train_step(cfg, model, opt, tp_mesh)
+        xs, es = (t[lo:hi].to(dev, STEP_DTYPES[dtype]) for t in (x, eps))
+        m = step(xs, 0.5, eps=es)
+        grads = gather_tp(model, {n: p.grad for n, p in model.named_parameters()})
+        row = {"metrics": {k: float(v) for k, v in m.items()},
+               "grad": torch.cat([g.reshape(-1) for g in grads.values()]).double().cpu()}
+        if name == "f32":
+            axis = model.tp_axis
+            axis.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(xs, 0.5, eps=es)
+            torch.cuda.synchronize()
+            row["ms"] = (time.perf_counter() - t0) * 1e3
+            row["calls"], row["axis_ms"] = dict(axis.calls), axis.seconds * 1e3
+            flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()]).float()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_mean(tp_mesh, flat)
+            torch.cuda.synchronize()
+            row["data_ms"] = (time.perf_counter() - t0) * 1e3
+        out[name] = row
+    return out
+
+
+RANK_CASES = {"step": rank_step, "serve": rank_serve, "nccl": rank_nccl, "tp": rank_tp}
 
 
 def rank_main(argv) -> None:
-    """One rank of phase 9: ``<case> <dir>`` under torchrun (NCCL), or
+    """One rank of phase 9 or 10b: ``<case> <dir>`` under torchrun (NCCL), or
     ``<case> <dir> <rank> <world> <init>`` for a gloo rank on cuda:0."""
     from adaptive_voice_conversion_tpu_torch.core.mesh import init_multihost, make_mesh
 
@@ -2028,6 +2090,149 @@ def phase_distribution(card: str, cfg, d: Path, resume_bound: float) -> dict:
     return {"dist_serve_launches": c["ranks"][0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tensor parallelism, the dry run, the sweep
+# ---------------------------------------------------------------------------
+
+# 10b: dp2 x tp2, four gloo ranks on the card, one step on a global batch of
+# 16 rows against one process's step on the 16 rows (TF32 off, cuDNN
+# deterministic). Tensor parallelism splits the channel contractions, and the
+# card sums a split contraction in another order than the whole (9b), so the
+# gate is in f64: loss and grad_norm rtol 1e-6, the gathered gradient
+# relative Frobenius 1e-6, with and without spectral norm. In f32 the JAX
+# package's bounds for its tensor-parallel step (tests/test_distributed.py:
+# 146-153): loss rtol 1e-5, grad_norm rtol 1e-4.
+TP_DATA, TP_MODEL, TP_ROWS = 2, 2, 16
+TP_VARIANTS = (("f64", "f64", False), ("f64_sn", "f64", True), ("f32", "f32", False))
+TOL_TP_F64 = 1e-6
+TOL_TP_F32 = {"loss": 1e-5, "grad_norm": 1e-4}
+
+
+def with_sn(cfg, sn: bool):
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, decoder=dataclasses.replace(m.decoder, sn=sn)))
+
+
+def phase_entry(card: str) -> None:
+    """10a: entry() on the card against the same function on the CPU."""
+    from adaptive_voice_conversion_tpu_torch.entry import entry
+
+    fn, (model, x, gen) = entry()
+    check(x.is_cuda and next(model.parameters()).is_cuda, "10a: entry() is not on the card")
+    with torch.no_grad():
+        dec = fn(model, x, gen).cpu()
+    # the VAE's draw: the card generator's first, at the content code's (B, C, T)
+    eps = torch.randn((8, 128, 16), generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda").cpu()
+    cpu = AE(model.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu(x.cpu(), eps=eps.transpose(1, 2))[3]
+    err = float(((dec - want).abs() / (1 + want.abs())).max())
+    check(dec.shape == (8, 128, 512) and err <= 1e-4,
+          f"10a: entry() on the card vs the CPU: shape {tuple(dec.shape)}, max |diff| / (1 + |cpu|) {err:.3e} > 1e-4")
+    log(f"[tp] 10a entry(): dec {tuple(dec.shape)} {dec.dtype} on the card against the same fn on the "
+        f"CPU (TF32 off): max |diff| / (1 + |cpu|) {err:.3e} (tol 1e-4)")
+
+
+def phase_tp_step(card: str, work: Path) -> dict:
+    """10b: four gloo ranks' tensor-parallel step against one process's."""
+    work.mkdir()
+    (work / "spec.json").write_text("{}")
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("tp", work, world=TP_DATA * TP_MODEL)
+    base = load_config(str(REPO / "examples" / "config.yaml"))
+    dev = torch.device("cuda")
+    x, eps = (t[:TP_ROWS] for t in step_inputs(base, SEED + 100))
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = {name: one_step(with_sn(base, sn), dev, x, eps, dtype) for name, dtype, sn in TP_VARIANTS}
+        # the f32 step's second call, timed as the ranks time theirs
+        model, opt = fresh_model(base, dev)
+        step = make_train_step(base, model, opt)
+        xs, es = x.to(dev), eps.to(dev)
+        step(xs, 0.5, eps=es)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(xs, 0.5, eps=es)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = {}
+    for name, dtype, sn in TP_VARIANTS:
+        w = worst[name] = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0}
+        for r, out in enumerate(ranks):
+            got, want = out[name]["metrics"], one[name]["metrics"]
+            for k in ("loss", "grad_norm"):
+                rel = abs(got[k] - want[k]) / abs(want[k])
+                tol = TOL_TP_F64 if dtype == "f64" else TOL_TP_F32[k]
+                check(rel <= tol, f"10b rank {r} ({name}): {k} {got[k]} vs one process {want[k]}: "
+                      f"relative {rel:.3e} > {tol}")
+                w[k] = max(w[k], rel)
+            fro = rel_fro(out[name]["grad"], one[name]["grad"])
+            if dtype == "f64":
+                check(fro <= TOL_TP_F64, f"10b rank {r} ({name}): the gathered gradient against one "
+                      f"process's, relative Frobenius {fro:.3e} > {TOL_TP_F64}")
+            w["grad"] = max(w["grad"], fro)
+    for a in range(0, TP_DATA * TP_MODEL, TP_MODEL):  # the model groups
+        for b in range(a + 1, a + TP_MODEL):
+            for name, _, _ in TP_VARIANTS:
+                check(ranks[a][name]["metrics"] == ranks[b][name]["metrics"],
+                      f"10b: ranks {a} and {b} of one model group report different metrics ({name})")
+    return {"ranks": ranks, "worst": worst, "one_ms": one_ms, "one": one}
+
+
+def phase_tensor_parallel(card: str) -> None:
+    """Phase 10: entry(), the dp2 x tp2 step, the two dry runs, the sweep."""
+    from adaptive_voice_conversion_tpu_torch.entry import dryrun_multichip
+    from adaptive_voice_conversion_tpu_torch.parallel.scaling import scaling_sweep
+
+    t0 = time.perf_counter()
+    phase_entry(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        b = phase_tp_step(card, Path(tmp) / "tp")
+    w = b["worst"]
+    log(f"[tp] 10b dp2 x tp2: four gloo ranks sharing the card (cuda:0, TF32 off, cuDNN deterministic), "
+        f"one step on their 8 rows each of a global batch of {TP_ROWS} x 128 x 512 against one "
+        f"process's step on the {TP_ROWS} rows; largest relative difference of loss / grad_norm / "
+        f"relative Frobenius of the gathered gradient: f64 {w['f64']['loss']:.2e} / "
+        f"{w['f64']['grad_norm']:.2e} / {w['f64']['grad']:.2e}, f64 with sn {w['f64_sn']['loss']:.2e} / "
+        f"{w['f64_sn']['grad_norm']:.2e} / {w['f64_sn']['grad']:.2e} (tol {TOL_TP_F64} each); f32 "
+        f"{w['f32']['loss']:.2e} / {w['f32']['grad_norm']:.2e} / {w['f32']['grad']:.2e} (tol loss "
+        f"{TOL_TP_F32['loss']}, grad_norm {TOL_TP_F32['grad_norm']}; the gradient not gated in f32); "
+        f"the ranks of each model group report equal metrics")
+    t_c = time.perf_counter()
+    nccl = dryrun_multichip(1)
+    gloo = dryrun_multichip(4, backend="gloo")
+    for what, out in (("dryrun_multichip(1)", nccl), ("dryrun_multichip(4, backend='gloo')", gloo)):
+        losses = [out["tiny"]["loss"], out["full"]["loss"], float(out["multi"][-1][0])]
+        check(all(np.isfinite(losses)), f"10c {what}: losses {losses}")
+    check(nccl["mesh"] == (1, 1) and gloo["mesh"] == (2, 2), f"10c meshes {nccl['mesh']}, {gloo['mesh']}")
+    log(f"[tp] 10c dryrun_multichip(1) under NCCL at world size 1 and dryrun_multichip(4, "
+        f"backend='gloo') on four ranks sharing the card: finite losses; "
+        f"{time.perf_counter() - t_c:.1f} s wall clock for both")
+    rows = scaling_sweep(load_config(str(REPO / "examples" / "config.yaml")), [1, 2])
+    check(len(rows) == 1 and rows[0]["devices"] == 1 and rows[0]["global_batch"] == 128,
+          f"10d: sweep rows {rows}")
+    log(f"[tp] 10d scaling_sweep sizes [1, 2] on the card: {json.dumps(rows[0])}; the sweep stopped "
+        f"at 2 ranks: this host has {torch.cuda.device_count()} GPU and the sweep puts one rank on each "
+        f"({card})")
+    f32 = [r["f32"] for r in b["ranks"]]
+    calls = f32[0]["calls"]
+    share = [(o["axis_ms"] + o["data_ms"]) / o["ms"] for o in f32]
+    log(f"[time] tp, four ranks sharing one card, not scaling: the dp2 x tp2 step (f32, TF32 off, cuDNN "
+        f"deterministic, second call, host clock) {', '.join(f'{o['ms']:.1f}' for o in f32)} ms per rank "
+        f"on 8 rows each, against one process on the {TP_ROWS} rows {b['one_ms']:.1f} ms; model-axis "
+        f"collectives per step per rank: forward {calls['forward']}, backward {calls['backward']}, "
+        f"update {calls['update']}; their time {', '.join(f'{o['axis_ms']:.1f}' for o in f32)} ms and "
+        f"the data-axis all-reduce's {', '.join(f'{o['data_ms']:.1f}' for o in f32)} ms per rank: the "
+        f"gloo collectives, staged through the host, take {min(share):.1%}-{max(share):.1%} of the step "
+        f"({card})")
+    log(f"[tp] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 def config_copy(d: Path, name: str, **changes) -> Path:
     """examples/config.yaml with these top-level fields changed, in ``d``."""
     cfg = dataclasses.replace(load_config(str(REPO / "examples" / "config.yaml")), **changes)
@@ -2060,6 +2265,7 @@ def main() -> None:
     serving = phase_serving(card)
     times = phase_kernel_times(card)
     training = phase_training(card)
+    phase_tensor_parallel(card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "griffin_lim_phases",

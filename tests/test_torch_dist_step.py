@@ -214,7 +214,7 @@ def test_mesh_collectives(runs):
 @pytest.mark.parametrize(
     "name,kind,match",
     [("uncovered", "ValueError", "does not cover 2 ranks"),
-     ("n_model", "NotImplementedError", "slice 7"),
+     ("n_model", "ValueError", "mesh 2x2 does not cover 2 ranks"),
      ("indivisible", "ValueError", "not divisible")],
 )
 def test_mesh_errors(runs, name, kind, match):

@@ -11,8 +11,10 @@ under the test's temporary directory (no port can race), runs the case and
 writes what it saw to ``<work_dir>/out_<case>_<rank>.pt`` (a case run
 twice, at two world sizes, is read between the runs); the test holds
 the ranks' outputs against the JAX package and against one process of the
-port. This module imports no JAX, so the ranks run the port as a torch-only
-host would.
+port. A spec with ``n_model`` runs the case on a ``(world / n_model,
+n_model)`` mesh with the model split over its model axis
+(parallel/tp.py). This module imports no JAX, so the ranks run the port as
+a torch-only host would.
 """
 
 from __future__ import annotations
@@ -74,6 +76,21 @@ def _params(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
+def _split(model, mesh):
+    """The model split over the mesh's model axis (a no-op at n_model 1)."""
+    from adaptive_voice_conversion_tpu_torch.parallel.tp import shard_params_tp
+
+    return shard_params_tp(model, mesh)
+
+
+def _whole(model, mesh) -> dict:
+    """Every parameter whole (gathered over the model axis), and this
+    rank's own tensors."""
+    from adaptive_voice_conversion_tpu_torch.parallel.tp import gather_params_tp
+
+    return gather_params_tp(model, mesh), _params(model)
+
+
 def case_mesh(spec, mesh, rank):
     """The mesh's layout and helpers, and what must raise."""
     from adaptive_voice_conversion_tpu_torch.core import mesh as m
@@ -97,7 +114,7 @@ def case_mesh(spec, mesh, rank):
     out["replicated"] = [replicated["w"].tolist(), replicated["b"][0].float().tolist()]
     for name, call in (
         ("uncovered", lambda: m.make_mesh(n_data=3)),
-        ("n_model", lambda: m.make_mesh(n_data=1, n_model=2)),
+        ("n_model", lambda: m.make_mesh(n_data=2, n_model=2)),
         ("indivisible", lambda: m.local_batch_size(7, mesh)),
     ):
         try:
@@ -113,6 +130,7 @@ def case_step(spec, mesh, rank):
     rows of the global batch and of the given eps."""
     from adaptive_voice_conversion_tpu_torch.core.mesh import row_window
     from adaptive_voice_conversion_tpu_torch.models.ae import AE
+    from adaptive_voice_conversion_tpu_torch.parallel.tp import gather_tp
     from adaptive_voice_conversion_tpu_torch.train.optim import make_optimizer
     from adaptive_voice_conversion_tpu_torch.train.step import make_train_step
 
@@ -121,15 +139,20 @@ def case_step(spec, mesh, rank):
         cfg = v["cfg"]
         model = AE(cfg.model)
         model.load_state_dict(v["state_dict"], strict=True)
+        _split(model, mesh)
         opt = make_optimizer(cfg.optimizer, model.parameters())
         step = make_train_step(cfg, model, opt, mesh)
         b = v["x"].shape[0] // mesh.n_data
         lo, hi, _ = row_window(mesh, b)
         m = step(torch.from_numpy(v["x"][lo:hi]), v["lam"], eps=torch.from_numpy(v["eps"][lo:hi]))
+        params, local = _whole(model, mesh)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         out[v["name"]] = {
             "metrics": {k: float(x) for k, x in m.items()},
-            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
-            "params": _params(model),
+            "grads": grads,
+            "grads_whole": gather_tp(model, grads),
+            "params": params,
+            "local": local,
         }
     return out
 
@@ -152,6 +175,7 @@ def case_draws(spec, mesh, rank):
         cfg = v["cfg"]
         model = AE(cfg.model)
         init_parameters(model, torch.Generator().manual_seed(v["seed"]))
+        _split(model, mesh)
         opt = make_optimizer(cfg.optimizer, model.parameters())
         step = make_train_step(cfg, model, opt, mesh)
         gen = torch.Generator()
@@ -164,10 +188,12 @@ def case_draws(spec, mesh, rank):
         x = v["eval_batch"]
         lo, hi, _ = row_window(mesh, x.shape[0] // mesh.n_data)
         ev = make_eval_step(cfg, model, mesh)(torch.from_numpy(x[lo:hi]), 0.5)
+        params, local = _whole(model, mesh)
         out[v["name"]] = {
             "rows": rows,
             "eval": {k: float(t) for k, t in ev.items()},
-            "params": _params(model),
+            "params": params,
+            "local": local,
         }
     return out
 
@@ -245,6 +271,37 @@ def case_serve(spec, mesh, rank):
     return out
 
 
+def case_tp_ops(spec, mesh, rank):
+    """Megatron's four operators forward and backward on this rank's inputs
+    (rank r's of the spec's), a split of the spec's model and its
+    gathered state_dict, and the mesh's errors."""
+    from adaptive_voice_conversion_tpu_torch.core import mesh as m
+    from adaptive_voice_conversion_tpu_torch.models.ae import AE
+    from adaptive_voice_conversion_tpu_torch.parallel.tp import ModelAxis
+
+    axis = ModelAxis(mesh)
+    out = {"fields": (mesh.n_data, mesh.n_model, mesh.data_index, mesh.model_index)}
+    for op in ("copy", "reduce", "gather", "gather2", "scatter"):
+        x = spec["x"][op][rank].clone().requires_grad_(True)
+        y = axis.gather(x, 2) if op == "gather2" else getattr(axis, op)(x)
+        (y * spec["w"][op][rank]).sum().backward()
+        out[op] = (y.detach(), x.grad)
+    model = AE(spec["cfg"].model)
+    model.load_state_dict(spec["state_dict"])
+    _split(model, mesh)
+    params, local = _whole(model, mesh)
+    out["gathered"], out["local"] = params, local
+    out["errors"] = {}
+    for name, call in (("uncovered", lambda: m.make_mesh(n_model=3)),
+                       ("scatter", lambda: axis.scatter(torch.zeros(1, 3)))):
+        try:
+            call()
+            out["errors"][name] = None
+        except Exception as exc:  # recorded for the test to assert on
+            out["errors"][name] = (type(exc).__name__, str(exc))
+    return out
+
+
 CASES = {
     "mesh": case_mesh,
     "step": case_step,
@@ -252,6 +309,7 @@ CASES = {
     "solver": case_solver,
     "resume": case_resume,
     "serve": case_serve,
+    "tp_ops": case_tp_ops,
 }
 
 
@@ -263,8 +321,8 @@ def main() -> None:
 
     init_multihost(device="cpu", init_method=init, world_size=world, rank=rank)
     try:
-        mesh = make_mesh()
         spec = torch.load(Path(work_dir) / f"in_{case}.pt", weights_only=False)
+        mesh = make_mesh(n_model=spec.get("n_model", 1))
         spec["work_dir"] = work_dir
         out = CASES[case](spec, mesh, rank)
         torch.save(out, Path(work_dir) / f"out_{case}_{rank}.pt")
