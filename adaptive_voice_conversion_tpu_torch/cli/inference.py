@@ -22,7 +22,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("-output", "-o", help="output wav path", required=True)
     parser.add_argument("-sample_rate", "-sr", default=24000, type=int)
     parser.add_argument("--cpu_vocoder", action="store_true",
-                        help="run the vocoder on the CPU instead of --device")
+                        help="vocode on the host with the numpy oracle "
+                        "(exact, n_iter from the config), whatever --gl_method is")
     parser.add_argument("--gl_method", default="exact", choices=["exact", "fused", "pallas"],
                         help="Griffin-Lim: the exact torch.fft loop, or the "
                         "fused CUDA kernel's hybrid schedule (pallas: the JAX "

@@ -241,3 +241,8 @@ def load_config(path: str) -> TrainConfig:
     with open(path) as f:
         raw = yaml.safe_load(f)
     return config_from_dict(raw or {})
+
+
+def save_config(cfg: TrainConfig, path: str) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(config_to_dict(cfg), f, sort_keys=False)

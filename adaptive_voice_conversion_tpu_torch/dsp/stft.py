@@ -106,11 +106,20 @@ def stft(
     y: torch.Tensor, n_fft: int, hop_length: int, win_length: int
 ) -> torch.Tensor:
     """(..., n_samples) f32 -> complex64 (..., 1 + n_fft//2, n_frames)."""
-    lead = y.shape[:-1]
     pad = n_fft // 2
     yp = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")
-    frames = yp[:, 0].unfold(-1, n_fft, hop_length)  # (N, n_frames, n_fft)
-    frames = frames * _window(win_length, n_fft, y.device)
+    return stft_frames(yp.reshape(*y.shape[:-1], -1), n_fft, hop_length, win_length)
+
+
+def stft_frames(
+    yp: torch.Tensor, n_fft: int, hop_length: int, win_length: int
+) -> torch.Tensor:
+    """``stft`` of a signal that is already padded (center=False framing):
+    (..., n_samples) -> complex64 (..., 1 + n_fft//2, 1 + (n_samples -
+    n_fft) // hop)."""
+    lead = yp.shape[:-1]
+    frames = yp.reshape(-1, yp.shape[-1]).unfold(-1, n_fft, hop_length)
+    frames = frames * _window(win_length, n_fft, yp.device)  # (N, n_frames, n_fft)
     spec = torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
     return spec.reshape(*lead, *spec.shape[-2:])
 

@@ -1,4 +1,4 @@
-"""Griffin-Lim vocoder on tensors: normalized mel -> waveform.
+"""Griffin-Lim vocoder: normalized mel -> waveform.
 
 Chain: denormalize dB -> amplitude 10^(x*0.05) -> mel->linear regularized
 pseudo-inverse -> 100 iterations of ISTFT/STFT phase projection ->
@@ -6,6 +6,12 @@ de-preemphasis -> trim. ``griffin_lim(method=...)`` selects the exact
 ``torch.fft`` loop or the fused CUDA kernel's hybrid schedule
 (kernels/griffin_lim.py); the JAX package calls the latter "pallas", and
 both names select it here (``GL_METHODS``).
+
+``melspectrogram2wav`` is the vocoder on tensors. The numpy oracle (complex128
+iterations on the host, a copy of the JAX package's ``melspectrogram2wav``)
+takes the ``_np`` suffix: ``mel_to_mag_np``, ``griffin_lim_np``,
+``melspectrogram2wav_np``. It is what ``Inferencer(gpu_vocoder=False)`` and
+``cli/inference.py --cpu_vocoder`` vocode with.
 """
 
 from __future__ import annotations
@@ -16,15 +22,17 @@ import numpy as np
 import torch
 
 from ..core.config import SignalConfig
-from .audio import deemphasis_torch, trim_silence
+from .audio import deemphasis, deemphasis_torch, trim_silence
 from .mel import mel_to_linear_matrix
 from .stft import (
     istft,
     istft_env_inv_masked,
     istft_masked,
+    istft_np,
     stft,
     stft_masked,
     stft_mirror_index,
+    stft_np,
 )
 
 DEFAULT_SIGNAL = SignalConfig()
@@ -36,6 +44,44 @@ def _fused(method: str) -> bool:
     if method not in GL_METHODS:
         raise ValueError(f"method={method!r}: expected one of {GL_METHODS}")
     return method != "exact"
+
+
+def mel_to_mag_np(mel_tm: np.ndarray, cfg: SignalConfig = DEFAULT_SIGNAL) -> np.ndarray:
+    """Normalized mel (T, n_mels) -> linear magnitude (n_freq, T), numpy."""
+    mel = mel_tm.T
+    mel = (np.clip(mel, 0.0, 1.0) * cfg.max_db) - cfg.max_db + cfg.ref_db
+    mel = np.power(10.0, mel * 0.05)
+    m = mel_to_linear_matrix(cfg.sr, cfg.n_fft, cfg.n_mels)
+    return np.dot(m, mel)
+
+
+def griffin_lim_np(
+    mag: np.ndarray, cfg: SignalConfig = DEFAULT_SIGNAL, n_iter: Optional[int] = None
+) -> np.ndarray:
+    """Magnitude (n_freq, T) -> waveform, complex128 phase projection on the
+    host (the exact iteration in numpy)."""
+    n_iter = cfg.n_iter if n_iter is None else n_iter
+    X = mag.astype(np.complex128)
+    for _ in range(n_iter):
+        x_t = istft_np(X, cfg.n_fft, cfg.hop_length, cfg.win_length)
+        est = stft_np(x_t, cfg.n_fft, cfg.hop_length, cfg.win_length)
+        phase = est / np.maximum(1e-8, np.abs(est))
+        X = mag * phase[: mag.shape[0], : mag.shape[1]]
+    return np.real(istft_np(X, cfg.n_fft, cfg.hop_length, cfg.win_length)).astype(
+        np.float32
+    )
+
+
+def melspectrogram2wav_np(
+    mel_tm: np.ndarray, cfg: SignalConfig = DEFAULT_SIGNAL
+) -> np.ndarray:
+    """The numpy vocoder: normalized mel (T, n_mels) -> trimmed wav, all on
+    the host with ``cfg.n_iter`` exact iterations."""
+    mag = mel_to_mag_np(mel_tm, cfg)
+    wav = griffin_lim_np(mag, cfg)
+    wav = deemphasis(wav, cfg.preemphasis)
+    wav, _ = trim_silence(wav, top_db=60.0)
+    return wav.astype(np.float32)
 
 
 def mel_to_mag(mel_tm: torch.Tensor, cfg: SignalConfig = DEFAULT_SIGNAL) -> torch.Tensor:

@@ -36,6 +36,7 @@ from ..dsp.vocoder import (
     griffin_lim_masked,
     mel_to_mag,
     melspectrogram2wav,
+    melspectrogram2wav_np,
 )
 from ..models.ae import AE
 from ..models.masked import ae_inference_masked
@@ -70,10 +71,12 @@ class Inferencer:
         ``precision``: None/"default" keeps PyTorch's defaults, "highest"
         turns TF32 off for matmuls and cuDNN convolutions, "high" allows it
         (core/device.py ``set_precision``; a process-wide switch).
-        ``gpu_vocoder=False`` runs the vocoder on the CPU whatever
-        ``device`` is. ``mesh``: serve ``convert_grid`` / ``convert_pairs``
-        over its ranks (the module docstring); every rank must make the
-        same calls."""
+        ``gpu_vocoder=False`` vocodes on the CPU whatever ``device`` is: one
+        utterance with the numpy oracle ``melspectrogram2wav_np``, whatever
+        ``gl_method`` is (as the JAX package's ``use_tpu_vocoder=False``),
+        a batch with the torch vocoder on the CPU. ``mesh``: serve
+        ``convert_grid`` / ``convert_pairs`` over its ranks (the module
+        docstring); every rank must make the same calls."""
         if gl_method not in GL_METHODS:
             raise ValueError(f"gl_method={gl_method!r}: expected one of {GL_METHODS}")
         set_precision(precision)
@@ -82,6 +85,7 @@ class Inferencer:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.gl_method = gl_method
+        self.gpu_vocoder = gpu_vocoder
         self.vocoder_device = self.device if gpu_vocoder else torch.device("cpu")
         with open(attr_path, "rb") as f:
             self.attr = pickle.load(f)
@@ -150,6 +154,8 @@ class Inferencer:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (wav, converted denormalized mel)."""
         dec = self.denormalize(self.convert_mel(src_mel, tar_mel))
+        if not self.gpu_vocoder:
+            return melspectrogram2wav_np(dec, self.config.signal), dec
         mel = torch.from_numpy(np.asarray(dec, np.float32)).to(self.vocoder_device)
         with torch.no_grad():
             wav = melspectrogram2wav(mel, self.config.signal, gl_method=self.gl_method)

@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.config import TrainConfig, config_to_dict
+from ..core.config import TrainConfig, save_config
 from ..core.device import DeviceLike, resolve_device
 from ..core.mesh import Mesh, all_reduce_max, replicate_pytree
 from ..data.chunked import ChunkedDeviceStreamer
@@ -203,11 +203,8 @@ class Solver:
     def _save_config(self) -> None:
         if not self.is_main:
             return
-        import yaml
-
         os.makedirs(os.path.dirname(self.args.store_model_path) or ".", exist_ok=True)
-        with open(f"{self.args.store_model_path}.config.yaml", "w") as f:
-            yaml.safe_dump(config_to_dict(self.config), f)
+        save_config(self.config, f"{self.args.store_model_path}.config.yaml")
 
     @staticmethod
     def checkpoint_dir(path: str) -> str:

@@ -1,6 +1,6 @@
-"""Debugging and profiling hooks."""
+"""Debugging, profiling and cost-model hooks."""
 
 from .debug import enable_nan_debugging
-from .profiling import profile_trace
+from .profiling import profile_trace, step_timer
 
-__all__ = ["enable_nan_debugging", "profile_trace"]
+__all__ = ["enable_nan_debugging", "profile_trace", "step_timer"]

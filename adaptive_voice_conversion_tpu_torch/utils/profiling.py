@@ -1,10 +1,12 @@
-"""Tracing hook: a ``torch.profiler`` trace of a code region."""
+"""Tracing hooks: a ``torch.profiler`` trace of a code region
+(``profile_trace``) and a blocking wall-clock timer (``step_timer``)."""
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator
+import time
+from typing import Iterator, Optional
 
 import torch
 
@@ -30,3 +32,22 @@ def profile_trace(logdir: str) -> Iterator[None]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextlib.contextmanager
+def step_timer(label: str, result_holder: Optional[dict] = None) -> Iterator[None]:
+    """Blocking wall-clock timer of the enclosed region: on exit it waits for
+    the current CUDA device's queued work (nothing more on a host without
+    one), then stores the seconds under ``label`` in ``result_holder`` or
+    prints them."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if result_holder is not None:
+            result_holder[label] = dt
+        else:
+            print(f"[{label}] {dt * 1000:.2f} ms")

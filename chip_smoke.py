@@ -79,7 +79,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      at sizes 1 and 2, which stops at 2 on a one-GPU host; (e) the
      tensor-parallel step's times, its model-axis collectives and the share
      of the step the gloo collectives take. Ranks sharing one card, not
-     scaling.
+     scaling;
+ 11. data preparation at the published signal config and the same width:
+     (a) a seeded VCTK tree (16 speakers x 12 utterances of 2.0-6.0 s at 48
+     kHz, none a whole number of seconds) through the preprocess_pipeline
+     CLI on the card, and again with --host, every mel of the two runs
+     within 5e-4 (the last frames included), attr.pkl within 1e-5 relative,
+     the indexes and file lists equal; the featurizer's times per bucket
+     batch against the host's; (b) the training CLI for 20 steps at batch
+     128 on the dataset it wrote, finite losses, its audio-s/s and the
+     step's MFU by utils/roofline.py; (c) the one-shot CLI with
+     --gl_method fused from that checkpoint, one held-out speaker's wav to
+     another's, one kernel launch, and again with --cpu_vocoder (the numpy
+     oracle, no launch), the two vocoders' SC on the converted magnitude.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
@@ -661,16 +673,17 @@ def phase_kernel_times(card: str) -> dict:
     return {"main": main, "serving": serving}
 
 
-def make_wav(path: Path, seconds: float, f0: float, seed: int) -> None:
-    """A seeded voiced-like wav: harmonics with vibrato, a slow envelope
-    that trim_silence keeps whole, and a little noise in every mel band."""
+def make_wav(path: Path, seconds: float, f0: float, seed: int, sr: int = SIG.sr) -> None:
+    """A seeded voiced-like wav at ``sr``: harmonics with vibrato, a slow
+    envelope that trim_silence keeps whole, and a little noise in every mel
+    band."""
     rng = np.random.default_rng(seed)
-    n = int(round(seconds * SIG.sr))
-    t = np.arange(n) / SIG.sr
-    phase = 2 * np.pi * f0 * np.cumsum(1.0 + 0.03 * np.sin(2 * np.pi * 4.0 * t)) / SIG.sr
+    n = int(round(seconds * sr))
+    t = np.arange(n) / sr
+    phase = 2 * np.pi * f0 * np.cumsum(1.0 + 0.03 * np.sin(2 * np.pi * 4.0 * t)) / sr
     y = sum(rng.uniform(0.3, 1.0) / h * np.sin(h * phase) for h in range(1, 16))
     y = 0.3 * y * (0.7 + 0.3 * np.sin(2 * np.pi * 0.8 * t)) + 0.005 * rng.standard_normal(n)
-    save_wav(str(path), y.astype(np.float32), SIG.sr)
+    save_wav(str(path), y.astype(np.float32), sr)
 
 
 # Runs a CLI's entry point (argv[1] names its module under cli/) in a fresh
@@ -2233,6 +2246,244 @@ def phase_tensor_parallel(card: str) -> None:
     log(f"[tp] phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 11's corpus: VCTK's layout and rate (48 kHz, resampled to 24 kHz on
+# load), 16 speakers x 12 utterances of 2.0-6.0 s, none a whole number of
+# seconds, so every wave ends inside a featurizer bucket
+PREP_SPEAKERS, PREP_UTTS, PREP_SR = 16, 12, 48000
+# the published 10,000,000 training draws cut to 200,000: the draw is a
+# host-side Python loop and its JSON grows with it
+PREP_TRAIN_SAMPLES = 200_000
+PREP_ITERS = 20
+# the card's batched featurizer against the --host numpy run: tests/
+# test_kernels.py's bound for the JAX package's two paths, on every frame
+# (mels on the [0, 1] scale); attr.pkl relative
+TOL_PREP_MEL = 5e-4
+TOL_PREP_ATTR = 1e-5
+
+
+def write_vctk_corpus(root: Path) -> float:
+    """wav48/p<spk>/p<spk>_<utt>.wav and speaker-info.txt; returns the
+    seconds of audio."""
+    rng = np.random.default_rng(SEED + 110)
+    lines = ["ID  AGE  GENDER  ACCENTS  REGION"]
+    jobs = []
+    for s in range(PREP_SPEAKERS):
+        spk = 225 + s
+        lines.append(f"{spk}  23  {'FM'[s % 2]}  English  Somewhere")
+        (root / "wav48" / f"p{spk}").mkdir(parents=True)
+        for u in range(1, PREP_UTTS + 1):
+            sec = round(float(rng.uniform(2.0, 6.0)), 3)
+            sec += 0.001 if sec == int(sec) else 0.0
+            path = root / "wav48" / f"p{spk}" / f"p{spk}_{u:03d}.wav"
+            jobs.append((path, sec, 85.0 + 9.0 * s + 3.0 * u, SEED + 1000 * s + u))
+    (root / "speaker-info.txt").write_text("\n".join(lines) + "\n")
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda j: make_wav(*j, sr=PREP_SR), jobs))
+    return sum(j[1] for j in jobs)
+
+
+def load_split(d: Path, name: str):
+    with open(d / name, "rb") as f:
+        return pickle.load(f)
+
+
+def compare_datasets(card_dir: Path, host_dir: Path) -> dict:
+    """The card run's files against the --host run's: every mel (each run's
+    pickle denormalized with its own attr) within TOL_PREP_MEL on every
+    frame, attr within TOL_PREP_ATTR relative, the indexes and file lists
+    equal. Returns the largest mel difference and where it is."""
+    names = sorted(q.name for q in host_dir.iterdir())
+    check(names == sorted(q.name for q in card_dir.iterdir()), f"11 file sets differ: {names}")
+    attr_c, attr_h = load_split(card_dir, "attr.pkl"), load_split(host_dir, "attr.pkl")
+    attr_err = max(float(np.abs(attr_c[k] / attr_h[k] - 1).max()) for k in ("mean", "std"))
+    check(attr_err <= TOL_PREP_ATTR, f"11 attr.pkl relative difference {attr_err:.3e} > {TOL_PREP_ATTR}")
+    worst = {"err": -1.0}
+    frames = 0
+    for name in names:
+        if name == "attr.pkl":
+            continue
+        if not name.endswith(".pkl"):
+            same = (card_dir / name).read_bytes() == (host_dir / name).read_bytes()
+            check(same, f"11 {name} differs between the card and the host run")
+            continue
+        card, host = load_split(card_dir, name), load_split(host_dir, name)
+        check(list(card) == list(host), f"11 {name}: utterances differ or are in another order")
+        for k, h in host.items():
+            check(card[k].shape == h.shape and card[k].dtype == np.float32, f"11 {name}:{k} shape/dtype")
+            diff = np.abs((card[k] * attr_c["std"] + attr_c["mean"]) - (h * attr_h["std"] + attr_h["mean"]))
+            frame = int(np.argmax(diff.max(axis=1)))
+            frames += len(h) if name in ("train.pkl", "in_test.pkl", "out_test.pkl") else 0
+            if diff[frame].max() > worst["err"]:
+                worst = {"err": float(diff[frame].max()), "split": name, "utt": k, "frame": frame, "of": len(h)}
+    check(worst["err"] <= TOL_PREP_MEL, f"11 mel difference {worst} > {TOL_PREP_MEL}")
+    return dict(worst, attr_err=attr_err, frames=frames, files=len(names))
+
+
+def time_featurizer(card: str, paths: list, seconds: float) -> dict:
+    """In process: the host load (read, resample 48 -> 24 kHz, trim,
+    pre-emphasis) of every wav, the card's bucket batches (CUDA events
+    around the featurizer on the uploaded batch, host clock around the
+    whole call with its copies), and the host numpy featurizer on the same
+    waves."""
+    from adaptive_voice_conversion_tpu_torch.dsp.features import mel_from_wave, mel_from_wave_batched
+    from adaptive_voice_conversion_tpu_torch.tools.etl import (
+        bucket_batches,
+        featurize_batch,
+        load_wave,
+        pad_batch,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    waves = [(os.path.basename(p), load_wave(p, SIG)) for p in paths]
+    load_s = time.perf_counter() - t0
+    batches = bucket_batches(waves, SIG, 16)
+    pad_len, chunk = batches[0]
+    featurize_batch(chunk, pad_len, SIG, dev)  # warm-up: cuFFT plans, the mel basis
+    rows = []
+    for pad_len, chunk in batches:
+        x = torch.from_numpy(pad_batch(chunk, pad_len, SIG)).to(dev)
+        ms = cuda_ms(lambda: mel_from_wave_batched(x, SIG, centered=False), reps=3, warmup=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        featurize_batch(chunk, pad_len, SIG, dev)
+        rows.append((pad_len // SIG.sr, len(chunk), ms, (time.perf_counter() - t1) * 1e3))
+    card_s = sum(r[3] for r in rows) / 1e3
+    t0 = time.perf_counter()
+    for _, y in waves:
+        mel_from_wave(y, SIG)
+    host_s = time.perf_counter() - t0
+    n = len(waves)
+    dev_ms = sum(r[2] for r in rows)
+    for bucket in sorted({r[0] for r in rows}):
+        sel = [r for r in rows if r[0] == bucket]
+        log(f"[time] prep featurize bucket {bucket} s: {len(sel)} batches of "
+            f"{'/'.join(str(r[1]) for r in sel)} waves, device {', '.join(f'{r[2]:.3f}' for r in sel)} ms "
+            f"(CUDA events, mean of 3), the whole call with copies {', '.join(f'{r[3]:.2f}' for r in sel)} "
+            f"ms (host clock) ({card})")
+    log(f"[time] prep featurize {n} utterances, {seconds:.1f} s of audio: card device time "
+        f"{dev_ms:.2f} ms ({dev_ms / n:.4f} ms per utterance, CUDA events); card path = host load "
+        f"{load_s:.2f} s + {len(rows)} batch calls {card_s:.3f} s = {n / (load_s + card_s):.1f} "
+        f"utterances/s, {seconds / (load_s + card_s):.0f} audio-s/s; host numpy path = the same load + "
+        f"featurize {host_s:.2f} s = {n / (load_s + host_s):.1f} utterances/s, "
+        f"{seconds / (load_s + host_s):.0f} audio-s/s; the host's loading (read, resample_poly 48 -> "
+        f"24 kHz, trim, pre-emphasis) is {load_s / (load_s + card_s):.1%} of the card path; featurizing "
+        f"alone: card {n / card_s:.0f} utterances/s against host {n / host_s:.1f} ({card})")
+    return {"load_s": load_s, "card_s": card_s, "host_s": host_s, "device_ms": dev_ms}
+
+
+def phase_preprocess(card: str) -> dict:
+    """Phase 11: wavs -> dataset on the card -> 20 training steps -> a
+    one-shot conversion of an unseen speaker, all through the CLIs."""
+    from adaptive_voice_conversion_tpu_torch.dsp.vocoder import griffin_lim_np, mel_to_mag_np
+    from adaptive_voice_conversion_tpu_torch.utils.roofline import mfu_and_roofline
+
+    t_start = time.perf_counter()
+    cfg_path = REPO / "examples" / "config.yaml"
+    cfg = load_config(str(cfg_path))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        seconds = write_vctk_corpus(d / "corpus")
+        log(f"[prep] corpus: {PREP_SPEAKERS} speakers x {PREP_UTTS} utterances at {PREP_SR} Hz, "
+            f"{seconds:.1f} s of audio, written in {time.perf_counter() - t0:.1f} s")
+
+        # 11a: the dataset, on the card and on the host
+        prep = ["-m", "adaptive_voice_conversion_tpu_torch.tools.preprocess_pipeline", "vctk",
+                "--raw_data_dir", d / "corpus", "--n_out_speakers", 2, "--test_prop", 0.1,
+                "--n_utts_attr", 64, "--segment_size", 128, "--seed", SEED,
+                "--training_samples", PREP_TRAIN_SAMPLES]
+        wall = {}
+        for name, extra in (("card", []), ("host", ["--host"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *map(str, prep), "--data_dir", str(d / name), *extra],
+                                  cwd=REPO, capture_output=True, text=True, timeout=600)
+            wall[name] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"11 preprocess_pipeline ({name}) failed:\n{proc.stdout[-3000:]}\n"
+                  f"{proc.stderr[-3000:]}")
+        cmp = compare_datasets(d / "card", d / "host")
+        train = load_split(d / "card", "train.pkl")
+        with open(d / "card" / "train_samples_128.json") as f:
+            n_index = len(json.load(f))
+        check(n_index == PREP_TRAIN_SAMPLES, f"11 index has {n_index} entries")
+        log(f"[prep] 11a preprocess_pipeline vctk on the card: {len(train)} train utterances, "
+            f"{cmp['frames']} frames in train/in_test/out_test ({cmp['frames'] * 512 * 4 / 1e6:.1f} MB of "
+            f"f32 mels), {cmp['files']} files; against the --host run: largest mel difference "
+            f"{cmp['err']:.3e} (tol {TOL_PREP_MEL}) at {cmp['split']}:{cmp['utt']} frame {cmp['frame']} of "
+            f"{cmp['of']}, attr.pkl {cmp['attr_err']:.2e} relative (tol {TOL_PREP_ATTR}), the indexes "
+            f"({n_index} training draws) and file lists equal; wall clock {wall['card']:.1f} s on the card, "
+            f"{wall['host']:.1f} s with --host, each a whole process ({card})")
+        paths = sorted(str(q) for q in (d / "corpus" / "wav48").glob("*/*.wav"))
+        feat = time_featurizer(card, paths, seconds)
+
+        # 11b: train on the produced dataset
+        cli_s = run_train_cli(d / "card", train_argv(d / "card", cfg_path, "model", PREP_ITERS))
+        series = read_series(d / "card" / "log_model", "init/ae_train")
+        check(sorted(series) == [9, 19], f"11b summaries at {sorted(series)}, expected [9, 19]")
+        check(all(np.isfinite(v) for row in series.values() for v in row.values()),
+              f"11b losses not finite: {series}")
+        # audio_sec_per_sec is cumulative from the run's start: the second
+        # call's own rate is what the two rows leave between them
+        rate = series[19]["audio_sec_per_sec"]
+        elapsed = {s_: (s_ + 1) * AUDIO_S_PER_STEP / series[s_]["audio_sec_per_sec"] for s_ in (9, 19)}
+        step_s = (elapsed[19] - elapsed[9]) / 10
+        roof = mfu_and_roofline(cfg, step_s, torch.cuda.get_device_name(0))
+        check("mfu" in roof, f"11b no peak rates for {torch.cuda.get_device_name(0)}")
+        log(f"[prep] 11b cli.train -iters {PREP_ITERS} on the produced train_128.pkl / "
+            f"train_samples_128.json at batch 128 x 128 x 512 (input_mode auto -> device, cuDNN "
+            f"convolutions in TF32 as the CLI runs them): loss {series[9]['loss']:.4f} at step 9 -> "
+            f"{series[19]['loss']:.4f} at 19, loss_rec {series[9]['loss_rec']:.4f} -> "
+            f"{series[19]['loss_rec']:.4f}, all finite; {cli_s:.1f} s wall clock for the process ({card})")
+        log(f"[time] prep train: audio_sec_per_sec {rate:.1f} at step 19 (metrics.jsonl, steps 0-19 "
+            f"with the first call's warm-up), {AUDIO_S_PER_STEP / step_s:.1f} over the second call's steps "
+            f"10-19 (from the two rows) = {step_s * 1e3:.2f} ms a step; mfu_and_roofline of that step: {roof['flops_total'] / 1e9:.1f} GFLOP and "
+            f"{roof['hbm_bytes_est'] / 1e9:.3f} GB a step, {roof['achieved_tflops']:.2f} TFLOP/s, MFU "
+            f"{roof['mfu']:.4f} against {roof['device']}'s dense bf16 peak, HBM utilization "
+            f"{roof['hbm_utilization']:.4f}, {roof['roofline_bound']}-bound, speed of light "
+            f"{roof['speed_of_light_ms']:.3f} ms a step ({card})")
+
+        # 11c: serve an unseen speaker from the training checkpoint
+        out_test = (d / "card" / "out_test_files.txt").read_text().split()
+        spks = sorted({Path(q).parent.name for q in out_test})
+        check(len(spks) == 2, f"11c out_test speakers {spks}")
+        src = next(q for q in out_test if Path(q).parent.name == spks[0])
+        tar = next(q for q in out_test if Path(q).parent.name == spks[1])
+        check(not any(k.split("_")[0] in spks for k in train), f"11c speakers {spks} seen in training")
+        argv = ["-a", d / "card" / "attr.pkl", "-c", cfg_path, "-m", d / "card" / "model", "-s", src,
+                "-t", tar, "-o", d / "fused.wav", "--gl_method", "fused"]
+        launches, serve_s = run_cli("inference", argv)
+        check(launches == 1, f"11c the one-shot CLI launched griffin_lim_phases {launches} times, expected 1")
+        src_mel = get_spectrograms(src, SIG)[0]
+        n_max = SIG.hop_length * (-(-len(src_mel) // 8) * 8 - 1)
+        sr, wav = wavfile.read(d / "fused.wav")
+        check(sr == SIG.sr and wav.ndim == 1 and 0 < len(wav) <= n_max and bool(np.isfinite(wav).all()),
+              f"11c served wav sr {sr}, shape {wav.shape} (at most {n_max}), finite {np.isfinite(wav).all()}")
+        cpu_argv = argv[:-3] + [d / "oracle.wav", "--gl_method", "fused", "--cpu_vocoder"]
+        cpu_launches, cpu_s = run_cli("inference", cpu_argv)
+        check(cpu_launches == 0, f"11c --cpu_vocoder launched the kernel {cpu_launches} times")
+        _, wav_np = wavfile.read(d / "oracle.wav")
+        check(wav_np.ndim == 1 and 0 < len(wav_np) <= n_max and bool(np.isfinite(wav_np).all()),
+              f"11c --cpu_vocoder wav shape {wav_np.shape}")
+        # the two vocoders on the converted magnitude, before trim
+        inf = Inferencer.from_train_checkpoint(cfg, str(d / "card" / "model"), str(d / "card" / "attr.pkl"))
+        tar_mel = get_spectrograms(tar, SIG)[0]
+        dec = inf.denormalize(inf.convert_mel(inf.normalize(src_mel), inf.normalize(tar_mel)))
+        mag = mel_to_mag_np(dec, SIG)
+        with torch.no_grad():
+            w_fused = griffin_lim(torch.from_numpy(mag.astype(np.float32)).cuda(), SIG, method="fused")
+        sc_f, sc_np = _sc(mag, w_fused.cpu().numpy()), _sc(mag, griffin_lim_np(mag, SIG))
+        check(sc_f < sc_np + 0.05, f"11c fused SC {sc_f} not < numpy oracle SC {sc_np} + 0.05")
+        log(f"[prep] 11c cli.inference -m <store_model_path> --gl_method fused, source {Path(src).name} "
+            f"and target {Path(tar).name}, two held-out speakers (the target unseen in training): "
+            f"griffin_lim_phases launches {launches}, {len(wav)} samples (at most {n_max}), finite, "
+            f"{serve_s:.1f} s wall clock; --cpu_vocoder: launches {cpu_launches}, {len(wav_np)} samples, "
+            f"{cpu_s:.1f} s wall clock; vocoder SC on the converted magnitude: fused (card) {sc_f:.5f}, "
+            f"numpy oracle ({SIG.n_iter} exact iterations, host) {sc_np:.5f}, gap {sc_f - sc_np:+.5f} "
+            f"({card})")
+    log(f"[prep] phase 11 took {time.perf_counter() - t_start:.1f} s")
+    return {"serve_launches": launches, **feat}
+
+
 def config_copy(d: Path, name: str, **changes) -> Path:
     """examples/config.yaml with these top-level fields changed, in ``d``."""
     cfg = dataclasses.replace(load_config(str(REPO / "examples" / "config.yaml")), **changes)
@@ -2266,6 +2517,7 @@ def main() -> None:
     times = phase_kernel_times(card)
     training = phase_training(card)
     phase_tensor_parallel(card)
+    prep = phase_preprocess(card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "griffin_lim_phases",
@@ -2279,6 +2531,7 @@ def main() -> None:
             "train -> serve CLI": training["serve_launches"],
             "train (device mode) -> serve CLI": training["device_serve_launches"],
             "convert_grid over 2 ranks (per rank)": training["dist_serve_launches"],
+            "preprocess -> train -> serve CLI": prep["serve_launches"],
         },
         "max_abs_err": kern["a"]["max_abs_err"],
         "ms": times["main"]["ms"],
