@@ -15,8 +15,9 @@ data axis (core/mesh.py):
 
 ``--multihost``, or torchrun's ``WORLD_SIZE`` in the environment, starts
 the process group: NCCL on GPUs, gloo with ``--device cpu``.
-``--n_data`` defaults to the world size and must equal it (tensor
-parallelism is not ported yet).
+``--n_data`` defaults to the world size and must equal it: the CLI has no
+model axis, as the JAX package's has none. Tensor parallelism runs
+through ``entry.py`` and ``parallel/``.
 """
 
 import dataclasses

@@ -117,10 +117,10 @@ class TrainConfig:
     loss: LambdaConfig = field(default_factory=LambdaConfig)
     annealing_iters: int = 20000
     signal: SignalConfig = field(default_factory=SignalConfig)
-    # training-side knobs: compute_dtype, data_dtype, input_mode,
-    # opt_state_dtype and opt_fused are read by train/; the rest belong to
-    # the data modes that are not ported yet and are carried so that a
-    # config file round-trips field for field
+    # training-side knobs, every one read by train/ and data/:
+    # compute_dtype, opt_state_dtype and opt_fused by the step and the
+    # optimiser; data_dtype, input_mode, device_data_budget_bytes,
+    # chunk_bytes, chunk_repeats and inner_steps by the Solver's data modes
     compute_dtype: str = "float32"
     data_dtype: str = "float32"
     input_mode: str = "auto"

@@ -78,10 +78,10 @@ def _tp_step(cfg: TrainConfig, mesh, device, x_full: np.ndarray, seed: int) -> d
     ``seed``."""
     from .core.mesh import put_global_from_full
     from .parallel.tp import make_tp_train_step, shard_params_tp
-    from .train.optim import make_optimizer
+    from .train.optim import make_train_optimizer
 
     model = shard_params_tp(_seeded_model(cfg.model, 0, device), mesh)
-    opt = make_optimizer(cfg.optimizer, model.parameters(), state_dtype=cfg.opt_state_dtype)
+    opt = make_train_optimizer(cfg, model.parameters())
     step = make_tp_train_step(cfg, model, opt, mesh)
     x = put_global_from_full(torch.from_numpy(x_full), mesh).to(device)
     m = step(x, 0.5, generator=torch.Generator(device=device).manual_seed(seed))
@@ -93,7 +93,7 @@ def _tp_step(cfg: TrainConfig, mesh, device, x_full: np.ndarray, seed: int) -> d
 
 def _dryrun_rank(device: torch.device, _args) -> dict:
     from .core.mesh import make_mesh
-    from .train.optim import make_optimizer
+    from .train.optim import make_train_optimizer
     from .train.step import make_device_data_train_step
 
     n = torch.distributed.get_world_size()
@@ -115,7 +115,7 @@ def _dryrun_rank(device: torch.device, _args) -> dict:
     packed = rng.standard_normal((n, r_rows, 512)).astype(np.float32)
     starts = rng.integers(0, r_rows - seg, size=(n, n_starts))
     model = _seeded_model(base.model, 0, device)
-    opt = make_optimizer(base.optimizer, model.parameters(), state_dtype=base.opt_state_dtype)
+    opt = make_train_optimizer(base, model.parameters())
     multi = make_device_data_train_step(ds_cfg, model, opt, inner_steps=2, sharded_data=True,
                                         mesh=dp_mesh)
     ms = multi(torch.from_numpy(packed[rank]).to(device),

@@ -108,6 +108,37 @@ def _gl_constants(n_fft: int, win_length: int, hop_length: int):
     return cos_m, sin_m, ck_scale, g_scale, off, n_taps
 
 
+@lru_cache(maxsize=16)
+def _g2d_exact(
+    n_fft: int, win_length: int, hop_length: int, t: int, t_pad: int,
+    s_pad: int, off: int,
+):
+    """Per-(frame, sample) aperiodic 1/wss analysis gain, (t_pad, s_pad) f32:
+    row r is 1 / (the window-sum-square of ``t`` frames) at the samples
+    ``r * hop + off`` onward, 1 where no window reaches; rows past ``t``
+    are 1. Interior rows equal ``_gl_constants``' hop-periodic ``g_scale``;
+    edge rows exceed it (fewer windows overlap there).
+
+    The JAX package's recorded negative result
+    (adaptive_voice_conversion_tpu/kernels/griffin_lim.py:127-157): this
+    gain in place of the periodic one made the spectral convergence worse,
+    since the exact chain reflect-pads the signal before re-analysis and so
+    sees near-interior coverage at the edges. Neither the Pallas kernel nor
+    csrc/griffin_lim.cu takes it; kept with its test as the experiment."""
+    w = hann_window(win_length, n_fft)
+    total = n_fft + hop_length * (t - 1)
+    wss = np.zeros(total + s_pad, dtype=np.float64)
+    for i in range(t):
+        wss[i * hop_length : i * hop_length + n_fft] += w**2
+    tiny = np.finfo(np.float64).tiny
+    inv = np.where(wss > tiny, 1.0 / np.where(wss == 0, 1.0, wss), 1.0)
+    g = np.ones((t_pad, s_pad), dtype=np.float64)
+    for r in range(min(t, t_pad)):
+        q0 = r * hop_length + off
+        g[r] = inv[q0 : q0 + s_pad]
+    return g.astype(np.float32)
+
+
 @dataclass(frozen=True)
 class _Consts:
     cs: torch.Tensor  # (s_pad, 2*f_pad) bf16, [w*cos | -w*sin]

@@ -202,9 +202,19 @@ def _dense(layer, x: torch.Tensor, compute_dtype=None, full: bool = True) -> tor
     return _layer(op, layer, x, compute_dtype, full, (-1,))
 
 
-def _bank(layers: nn.ModuleList, x, kernel_sizes, act, compute_dtype=None) -> torch.Tensor:
-    ws, bs = [c.weight for c in layers], [c.bias for c in layers]
+def _bank(layers: nn.ModuleList, x, kernel_sizes, act, compute_dtype=None, bank_out=None) -> torch.Tensor:
+    """The encoder's conv bank of x, or ``bank_out`` when it is given (a
+    bank computed outside, e.g. by ops/conv.py ``dual_conv_bank``; the JAX
+    package's ``bank_out``)."""
     tp = _split(layers[0])
+    if bank_out is not None:
+        if tp is not None:
+            raise ValueError(
+                "bank_out with the bank split over a model axis: the split bank's "
+                "channels are this rank's groups, not a whole bank_out"
+            )
+        return bank_out
+    ws, bs = [c.weight for c in layers], [c.bias for c in layers]
     if tp is None:
         return conv_bank(x, ws, bs, kernel_sizes, act, compute_dtype=compute_dtype)
     # every bank conv is column-parallel: this rank's [k_1 | k_2 | ...]
@@ -307,10 +317,13 @@ class SpeakerEncoder(nn.Module):
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None, rows=None,
+        bank_out: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """``bank_out``: the conv bank's output (B, n_k*c_bank + c_in, T),
+        computed outside; the bank here is then skipped."""
         act, cd = self.act, compute_dtype
         drop = lambda y, ch=None: dropout(y, self.cfg.dropout_rate, generator, self.training, rows, ch)
-        out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
+        out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd, bank_out)
         out = act(_conv(self.in_conv_layer, out, cd))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):
             y = act(_conv(first, out, cd, full=False))
@@ -353,10 +366,12 @@ class ContentEncoder(nn.Module):
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None, rows=None,
+        bank_out: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``bank_out``: as ``SpeakerEncoder.forward``'s."""
         act, cd = self.act, compute_dtype
         drop = lambda y, ch=None: dropout(y, self.cfg.dropout_rate, generator, self.training, rows, ch)
-        out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd)
+        out = _bank(self.conv_bank, x, self.kernel_sizes, act, cd, bank_out)
         # instance norm before every activation
         out = drop(act(instance_norm_time(_conv(self.in_conv_layer, out, cd))))
         for first, second in zip(self.first_conv_layers, self.second_conv_layers):

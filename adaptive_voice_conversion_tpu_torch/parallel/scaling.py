@@ -34,7 +34,7 @@ def _sweep_rank(device: torch.device, a: dict) -> dict:
     from ..core.mesh import make_mesh
     from ..models.ae import AE
     from ..models.modules import init_parameters
-    from ..train.optim import make_optimizer
+    from ..train.optim import make_train_optimizer
     from ..train.step import make_device_data_train_step
 
     cfg, n = a["cfg"], a["n"]
@@ -48,7 +48,7 @@ def _sweep_rank(device: torch.device, a: dict) -> dict:
     model = AE(cfg.model)
     init_parameters(model, torch.Generator().manual_seed(a["seed"]))
     model.to(device)
-    opt = make_optimizer(cfg.optimizer, model.parameters(), state_dtype=cfg.opt_state_dtype)
+    opt = make_train_optimizer(cfg, model.parameters())
     mstep = make_device_data_train_step(cfg, model, opt, inner_steps=cfg.inner_steps, mesh=mesh)
     ms = mstep(packed, starts, a["seed"] + 1, 0).cpu()  # warm-up
     t0 = time.perf_counter()

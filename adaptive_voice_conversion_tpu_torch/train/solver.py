@@ -52,7 +52,7 @@ from ..models.ae import AE, count_params
 from ..models.modules import init_parameters
 from .checkpoint import CheckpointManager
 from .logger import Logger
-from .optim import kl_lambda, make_optimizer
+from .optim import kl_lambda, make_train_optimizer
 from .step import make_device_data_train_step, make_eval_step, make_train_step, step_seed
 
 MODES = ("auto", "device", "device_sharded", "chunked", "host")
@@ -177,10 +177,7 @@ class Solver:
         self.n_params = count_params(self.model)
 
     def _make_optimizer(self, model: AE):
-        c = self.config
-        return make_optimizer(
-            c.optimizer, model.parameters(), state_dtype=c.opt_state_dtype, fused=c.opt_fused
-        )
+        return make_train_optimizer(self.config, model.parameters())
 
     def _make_multi_step(self, inner_steps: int, model=None, optimizer=None):
         return make_device_data_train_step(

@@ -92,6 +92,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
      --gl_method fused from that checkpoint, one held-out speaker's wav to
      another's, one kernel launch, and again with --cpu_vocoder (the numpy
      oracle, no launch), the two vocoders' SC on the converted magnitude.
+ 12. the recorded experiments and the probes at the same width, on the
+     phase-7 corpus: (a) every opt_fused mode (False, True, bucketed,
+     bucketed8) for 10 device-mode steps from the same weights and seed, f32
+     with TF32 off and cuDNN deterministic, each against the per-leaf chain
+     (losses, grad_norm, parameters), in f32 and with opt_state_dtype
+     bfloat16, and each mode's ms and launches a step at TF32 on; (b) the
+     training CLI with opt_fused: bucketed4 for 20 steps, a twin of 10 and a
+     run resumed from step 10 (phase 7's resume gate), then the one-shot CLI
+     from the checkpoint with --gl_method fused, one kernel launch; (c)
+     conv_bank_in and dual_conv_bank against conv_bank and conv1d, and the
+     encoders fed bank_out, at the full width; (d) tools/perf_probes.py's
+     bank, residual, bank_split, parts and opt through its CLI, each in a
+     subprocess (all started together, each run in its turn while the
+     others wait), their lines printed, then profile, whose trace must be
+     written and non-empty.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
@@ -2484,6 +2499,355 @@ def phase_preprocess(card: str) -> dict:
     return {"serve_launches": launches, **feat}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the recorded experiments and the probes
+# ---------------------------------------------------------------------------
+
+OPT_MODES = (False, True, "bucketed", "bucketed8")
+# 12a, each opt_fused mode against the per-leaf chain from the same weights
+# over the same device-mode steps (f32, TF32 off, cuDNN deterministic). The
+# modes differ only in the global norm's reduction order, so with the clip
+# active the clip's scale differs by an f32 rounding:
+# - the first step: the same gradients in every mode, so the losses equal
+#   and grad_norm within 1e-5; the update moves by lr x that rounding, so
+#   every parameter within 1e-6 of the per-leaf one (~8 f32 units at the
+#   parameters' size: the rounding of p + u);
+# - ten steps: once the norm's rounding differs, the gradients differ by
+#   roundings and Adam turns the rounding of a near-zero gradient into lr x
+#   its sign (7a), so the trajectories part: on an H100 (80GB HBM3, 700 W)
+#   the flat and 4-bucket runs came out 6.3e-3 apart in loss_kl and 6.1e-3
+#   in the parameters (relative to their movement) after 10 steps, where
+#   the per-leaf chain with its clip threshold moved by 2^-22 (one rounding
+#   of the clip's scale at every step) came out 0.35 and 0.19 apart. Held
+#   to that twin: no further from the per-leaf chain than it is.
+TOL_OPT_FIRST = 1e-5
+TOL_OPT_FIRST_PARAM = 1e-6
+OPT_TWIN_CLIP = 1 + 2.0 ** -22
+# 12c, at the full width, f32 with TF32 off: the concat-free and the dual
+# bank against conv_bank then conv1d: 1e-5 of the largest output (the JAX
+# test's 1e-5 at its small sizes; a 1536-term f32 sum in another order);
+# bank_out against the encoders' own bank the same bound
+TOL_BANK_REL = 1e-5
+PROBE_ARGS = {"bank": [], "residual": [], "bank_split": [], "parts": [], "opt": ["--calls", "3"]}
+OPT_ITERS = 20
+
+
+# One probe's process: the imports and the CUDA context first, then it
+# waits for its turn (a file the script creates) and runs the probe's CLI as
+# ``python -m`` would. The start-up of every probe overlaps, and while one
+# probe is timed the others sleep.
+PROBE_RUNNER = (
+    "import pathlib, runpy, sys, time\n"
+    "import torch\n"
+    "import adaptive_voice_conversion_tpu_torch.tools.perf_probes\n"
+    "torch.cuda.init()\n"
+    "gate, argv = pathlib.Path(sys.argv[1]), sys.argv[2:]\n"
+    "(gate / ('ready_' + argv[0])).touch()\n"
+    "while not (gate / ('turn_' + argv[0])).exists():\n"
+    "    time.sleep(0.05)\n"
+    "sys.argv = ['perf_probes', *argv]\n"
+    "runpy.run_module('adaptive_voice_conversion_tpu_torch.tools.perf_probes', run_name='__main__')\n"
+)
+
+
+def run_probes(gate: Path, probes: dict) -> dict:
+    """{name: stdout} of every probe through its CLI, each in a process of
+    its own (PROBE_RUNNER), run one after another in ``probes``' order."""
+    gate.mkdir()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", PROBE_RUNNER, str(gate), name, *map(str, extra)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for name, extra in probes.items()}
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        while not all((gate / f"ready_{n}").exists() or p.poll() is not None for n, p in procs.items()):
+            check(time.perf_counter() - t0 < 600, "the probes' processes did not start within 600 s")
+            time.sleep(0.1)
+        log(f"[probe] the {len(procs)} processes started in {time.perf_counter() - t0:.1f} s, side by side")
+        for name, proc in procs.items():
+            t0 = time.perf_counter()
+            (gate / f"turn_{name}").touch()
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"perf_probes {name} failed:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+            for line in stdout.splitlines():
+                log(f"[probe] {name} | {line}")
+            log(f"[probe] {name} | took {time.perf_counter() - t0:.1f} s from its turn")
+            out[name] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    return out
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).double() for p in model.parameters()])
+
+
+def opt_run(c, res, K: int) -> dict:
+    """One mode's first step, then K - 1 more (device mode, f32, TF32 off,
+    cuDNN deterministic): the metric rows, the parameters after the first
+    and the last step, and the multi-step to time."""
+    from adaptive_voice_conversion_tpu_torch.train.optim import make_train_optimizer
+
+    model = AE(c.model)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.to(torch.device("cuda"))
+    p0 = flat_params(model)
+    opt = make_train_optimizer(c, model.parameters())
+    first = make_device_data_train_step(c, model, opt, inner_steps=1)
+    rest = make_device_data_train_step(c, model, opt, inner_steps=K - 1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ms1 = first(res.packed, res.starts, SEED, 0)
+        p1 = flat_params(model)
+        ms = torch.cat([ms1, rest(res.packed, res.starts, SEED, 1)]).cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(bool(np.isfinite(ms).all()), f"12a opt_fused={c.opt_fused!r} {c.opt_state_dtype}: not finite")
+    p = flat_params(model)
+    return {"ms": ms, "p1": p1, "p": p, "moved": float((p - p0).norm()), "opt": opt,
+            "multi": make_device_data_train_step(c, model, opt, inner_steps=K),
+            "multi2": make_device_data_train_step(c, model, opt, inner_steps=2)}
+
+
+def opt_apart(r: dict, base: dict) -> dict:
+    rel = np.abs(r["ms"] - base["ms"]) / np.abs(base["ms"])
+    return {"first": float(rel[0].max()), "first_p": float((r["p1"] - base["p1"]).abs().max()),
+            "loss": float(rel[:, :3].max()), "grad_norm": float(rel[:, 3].max()),
+            "p": float((r["p"] - base["p"]).norm()) / base["moved"]}
+
+
+def launches_and_busy(fn) -> tuple:
+    """(kernel launches, device busy us) of one run of fn(), from a
+    torch.profiler trace of the card's activity alone (no host ops, so the
+    trace stays small)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return sum(int(e.count) for e in evts), sum(float(e.self_device_time_total) for e in evts)
+
+
+def phase_opt_parity(card: str, cfg, res) -> dict:
+    """12a: every opt_fused mode in device mode against the per-leaf chain,
+    in f32 and with opt_state_dtype bfloat16. Returns {state dtype: {mode:
+    run}} for the times."""
+    K = 10
+    out = {}
+    for sd in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, opt_state_dtype=sd)
+        runs = out[sd] = {False: opt_run(c, res, K)}
+        base = runs[False]
+        twin_cfg = dataclasses.replace(c, optimizer=dataclasses.replace(
+            c.optimizer, grad_norm=c.optimizer.grad_norm * OPT_TWIN_CLIP))
+        twin = opt_apart(opt_run(twin_cfg, res, K), base)
+        log(f"[exp] 12a the per-leaf chain with its clip threshold x (1 + 2^-22), opt_state_dtype={sd}, "
+            f"against the per-leaf chain over {K} device-mode steps (f32, TF32 off, cuDNN deterministic): "
+            f"first step: metrics {twin['first']:.3e}, parameters {twin['first_p']:.3e}; over the {K} "
+            f"steps: losses {twin['loss']:.3e}, grad_norm {twin['grad_norm']:.3e}, parameters "
+            f"{twin['p']:.3e} of the per-leaf run's movement {base['moved']:.4f} ({card})")
+        for mode in OPT_MODES[1:]:
+            r = runs[mode] = opt_run(dataclasses.replace(c, opt_fused=mode), res, K)
+            a = opt_apart(r, base)
+            bounds = {k: max(twin[k], TOL_OPT_FIRST) for k in ("loss", "grad_norm", "p")}
+            check(a["first"] <= TOL_OPT_FIRST and a["first_p"] <= TOL_OPT_FIRST_PARAM,
+                  f"12a opt_fused={mode!r} {sd}: first step's metrics {a['first']:.3e} (tol "
+                  f"{TOL_OPT_FIRST}), parameters {a['first_p']:.3e} (tol {TOL_OPT_FIRST_PARAM})")
+            check(all(a[k] <= bounds[k] for k in bounds),
+                  f"12a opt_fused={mode!r} {sd} over {K} steps: {a} against {bounds}")
+            log(f"[exp] 12a opt_fused={mode!r} ({len(r['opt'].fill)} buckets), opt_state_dtype={sd}, "
+                f"against the per-leaf chain: first step's metrics {a['first']:.3e} (tol "
+                f"{TOL_OPT_FIRST}), parameters after it max|diff| {a['first_p']:.3e} (tol "
+                f"{TOL_OPT_FIRST_PARAM}); over {K} steps losses {a['loss']:.3e}, grad_norm "
+                f"{a['grad_norm']:.3e}, parameters {a['p']:.3e} of their movement (bounds: the twin's, "
+                f"at least {TOL_OPT_FIRST}); loss_rec {r['ms'][0, 1]:.4f} -> {r['ms'][-1, 1]:.4f} ({card})")
+    return out
+
+
+def phase_opt_times(card: str, runs: dict, res) -> None:
+    """12a's times: each mode's multi-step at TF32 on (as cli.train runs),
+    the modes in turns so that the host's load falls on each alike."""
+    K = 10
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for sd, by_mode in runs.items():
+            calls = {m: (lambda r=r: r["multi"](res.packed, res.starts, SEED, K)) for m, r in by_mode.items()}
+            for call in calls.values():
+                call()
+            step_ms = {m: [] for m in calls}
+            for _ in range(3):
+                for m, call in calls.items():
+                    step_ms[m].append(stream_ms(call) / K)
+            for m, r in by_mode.items():
+                # one trace of a 2-step call each: a trace of 10-step calls
+                # takes seconds to read, and one trace of every mode's
+                # calls lost events
+                launches, busy_us = (v / 2 * K for v in launches_and_busy(
+                    lambda: r["multi2"](res.packed, res.starts, SEED, K)))
+                log(f"[time] exp opt_fused={m!r} opt_state_dtype={sd} (multi-step, {K} steps a call, "
+                    f"f32, TF32 on, the modes in turns): {', '.join(f'{v:.3f}' for v in step_ms[m])} ms "
+                    f"per step (host clock to the end of each call; median {np.median(step_ms[m]):.3f}, "
+                    f"{np.median(step_ms[m]) / np.median(step_ms[False]):.3f}x the per-leaf chain's), "
+                    f"{launches / K:.0f} launches a step, device busy {busy_us / 1e3 / K:.3f} ms a step "
+                    f"(torch.profiler's device activity over a 2-step call) ({card})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_opt_cli(card: str, d: Path) -> int:
+    """12b: cli.train with opt_fused bucketed4 (host stream), a twin, a run
+    resumed from step 10, and the one-shot CLI from the checkpoint."""
+    cfg_path = config_copy(d, "config_bucketed4.yaml", input_mode="host", opt_fused="bucketed4")
+    (_, first_s), (_, twin_s) = run_clis([
+        ("bucketed4", train_argv(d, cfg_path, "b4", OPT_ITERS, "-save_steps", 10)),
+        ("bucketed4 twin", train_argv(d, cfg_path, "b4_twin", 10)),
+    ])
+    first = read_series(d / "log_b4", "init/ae_train")
+    twin = read_series(d / "log_b4_twin", "init/ae_train")
+    check(sorted(first) == [0, 5, 10, 15] and sorted(twin) == [0, 5],
+          f"12b summaries at {sorted(first)} and {sorted(twin)}")
+    state = torch.load(d / "b4.ckpts" / "step_10.pt", map_location="cpu", weights_only=True)["optimizer"]
+    check(state.get("opt_fused") == "bucketed4" and sorted(state["state"]) == [f"bucket{k}" for k in range(4)],
+          f"12b the checkpoint's optimiser state is not bucketed4's: {sorted(state)} {sorted(state['state'])}")
+    noise = largest_rel_diff(first, twin, [0, 5])
+    (d / "b4_10.ckpts").mkdir()
+    shutil.copy(d / "b4.ckpts" / "step_10.pt", d / "b4_10.ckpts" / "step_10.pt")
+    src, tar, out = d / "source.wav", d / "target.wav", d / "converted_b4.wav"
+    make_wav(src, 4.0, 130.0, SEED)
+    make_wav(tar, 4.0, 215.0, SEED + 1)
+    serve_argv = ["-a", d / "attr.pkl", "-c", cfg_path, "-m", d / "b4", "-s", src, "-t", tar,
+                  "-o", out, "--gl_method", "fused"]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        serving = pool.submit(run_cli, "inference", serve_argv)
+        ((_, res_s),) = run_clis([("bucketed4 resumed", train_argv(
+            d, cfg_path, "b4_res", 10, "--load_model", "-load_model_path", d / "b4_10"))])
+        launches, serve_s = serving.result()
+    resumed = read_series(d / "log_b4_res", "init/ae_train")
+    check(sorted(resumed) == [10, 15], f"12b resumed run's summaries at {sorted(resumed)}")
+    gap = largest_rel_diff(first, resumed, [10, 15])
+    bound = max(10 * noise, RESUME_FLOOR)
+    check(gap <= bound, f"12b resumed run's loss differs from the first run's by {gap:.3e} > {bound:.3e}")
+    check(launches == 1, f"12b serving the bucketed4 checkpoint launched the kernel {launches} times")
+    sr, wav = wavfile.read(out)
+    check(sr == SIG.sr and wav.ndim == 1 and len(wav) > 0 and bool(np.isfinite(wav).all()),
+          f"12b served wav sr {sr}, shape {wav.shape} or not finite")
+    log(f"[exp] 12b cli.train opt_fused: bucketed4 (input_mode host), {OPT_ITERS} steps: loss_rec "
+        f"{first[0]['loss_rec']:.4f} -> {first[15]['loss_rec']:.4f}, the checkpoint's state 4 flat "
+        f"buckets; resumed from step 10 against the first run at steps 10 and 15: largest relative "
+        f"difference of loss {gap:.3e}; a twin run from scratch differs by {noise:.3e} at steps 0 and 5; "
+        f"bound max(10 x that, {RESUME_FLOOR}) = {bound:.3e}; {first_s:.1f}, {twin_s:.1f} and "
+        f"{res_s:.1f} s wall clock (the first two side by side) ({card})")
+    log(f"[exp] 12b train (opt_fused bucketed4) -> serve: cli.inference --gl_method fused on the "
+        f"step-{OPT_ITERS} checkpoint: {len(wav)} samples, griffin_lim_phases launches {launches}, "
+        f"{serve_s:.1f} s wall clock ({card})")
+    return launches
+
+
+def phase_banks(card: str, cfg) -> None:
+    """12c: conv_bank_in and dual_conv_bank at the full width on the card,
+    and the encoders fed the dual bank's outputs as bank_out."""
+    from adaptive_voice_conversion_tpu_torch.ops.conv import conv1d, conv_bank, conv_bank_in, dual_conv_bank
+
+    dev = torch.device("cuda")
+    model = AE(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.to(dev).eval()
+    spk, cnt = model.speaker_encoder, model.content_encoder
+    dl = cfg.data_loader
+    x = torch.randn(dl.batch_size, spk.cfg.c_in, dl.segment_size, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    bank = lambda enc: ([c.weight for c in enc.conv_bank], [c.bias for c in enc.conv_bank])
+    rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
+    with torch.no_grad():
+        concat = conv1d(conv_bank(x, *bank(spk), spk.kernel_sizes, spk.act),
+                        spk.in_conv_layer.weight, spk.in_conv_layer.bias)
+        split = conv_bank_in(x, *bank(spk), spk.kernel_sizes, spk.act,
+                             spk.in_conv_layer.weight, spk.in_conv_layer.bias)
+        out_s, out_c = dual_conv_bank(x, (bank(spk), bank(cnt)), spk.kernel_sizes, (spk.act, cnt.act))
+        two = (conv_bank(x, *bank(spk), spk.kernel_sizes, spk.act),
+               conv_bank(x, *bank(cnt), cnt.kernel_sizes, cnt.act))
+        d_in = rel(split, concat)
+        d_dual = max(rel(out_s, two[0]), rel(out_c, two[1]))
+        d_emb = rel(spk(x, bank_out=out_s), spk(x))
+        d_mu = rel(cnt(x, bank_out=out_c)[0], cnt(x)[0])
+        t_in = cuda_ms(lambda: conv_bank_in(x, *bank(spk), spk.kernel_sizes, spk.act,
+                                            spk.in_conv_layer.weight, spk.in_conv_layer.bias), reps=10)
+        t_cat = cuda_ms(lambda: conv1d(conv_bank(x, *bank(spk), spk.kernel_sizes, spk.act),
+                                       spk.in_conv_layer.weight, spk.in_conv_layer.bias), reps=10)
+        t_dual = cuda_ms(lambda: dual_conv_bank(x, (bank(spk), bank(cnt)), spk.kernel_sizes,
+                                                (spk.act, cnt.act)), reps=10)
+        t_two = cuda_ms(lambda: (conv_bank(x, *bank(spk), spk.kernel_sizes, spk.act),
+                                 conv_bank(x, *bank(cnt), cnt.kernel_sizes, cnt.act)), reps=10)
+    for what, v in (("conv_bank_in against conv_bank -> conv1d", d_in),
+                    ("dual_conv_bank against two conv_bank calls", d_dual),
+                    ("the speaker encoder with bank_out against its own bank", d_emb),
+                    ("the content encoder's mu with bank_out against its own bank", d_mu)):
+        check(v <= TOL_BANK_REL, f"12c {what}: {v:.3e} of the largest output > {TOL_BANK_REL}")
+    log(f"[exp] 12c at the full width (batch {dl.batch_size} x {spk.cfg.c_in} x {dl.segment_size}, "
+        f"f32, TF32 off): largest difference relative to the largest output: conv_bank_in against "
+        f"conv_bank -> conv1d {d_in:.3e}, dual_conv_bank against two conv_bank calls {d_dual:.3e}, "
+        f"the encoders fed bank_out against their own banks {d_emb:.3e} (embedding) and {d_mu:.3e} "
+        f"(mu); tol {TOL_BANK_REL} ({card})")
+    log(f"[time] exp banks (f32, TF32 off, forward, CUDA events, mean of 10): conv_bank_in "
+        f"{t_in:.3f} ms against conv_bank -> conv1d {t_cat:.3f} ms; dual_conv_bank {t_dual:.3f} ms "
+        f"against two conv_bank calls {t_two:.3f} ms ({card})")
+
+
+def phase_probes(card: str, d: Path) -> None:
+    """12d: every probe through its CLI; profile must write a trace."""
+    outs = run_probes(d / "probe_gate", {**PROBE_ARGS, "profile": ["--calls", "1", "--out_dir", d / "profile"]})
+    for name, out in outs.items():
+        check("devices: cuda" in out, f"probe {name} did not name the card")
+    check("trace captured in" in outs["profile"] and "FAILED" not in outs["profile"],
+          f"probe profile wrote no trace:\n{outs['profile']}")
+    files = [q for q in (d / "profile").rglob("*") if q.is_file()]
+    check(bool(files) and all(q.stat().st_size > 0 for q in files),
+          f"probe profile's trace files {[(q.name, q.stat().st_size) for q in files]}")
+
+
+def timed_part(label: str, fn):
+    """fn(), its wall seconds logged under ``label``."""
+    t = time.perf_counter()
+    out = fn()
+    log(f"{label} took {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def phase_experiments(card: str) -> dict:
+    """Phase 12 on a fresh copy of the phase-7 corpus."""
+    t0 = time.perf_counter()
+    cfg = load_config(str(REPO / "examples" / "config.yaml"))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        write_corpus(d)
+        ds = SegmentDataset(str(d / "train_128.pkl"), str(d / "train_samples_128.json"),
+                            cfg.data_loader.segment_size)
+        res = DeviceResidentDataset(ds, torch.device("cuda"), dtype="float32")
+        timed = lambda label, fn: timed_part(f"[exp] {label}", fn)
+        # 12b's processes run beside 12a's parity runs, which are
+        # deterministic; nothing else shares the card while anything is timed
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            cli = pool.submit(timed, "12b", lambda: phase_opt_cli(card, d))
+            runs = timed("12a parity (beside 12b)", lambda: phase_opt_parity(card, cfg, res))
+            launches = cli.result()
+        timed("12a times", lambda: phase_opt_times(card, runs, res))
+        del runs
+        timed("12c", lambda: phase_banks(card, cfg))
+        timed("12d", lambda: phase_probes(card, d))
+    log(f"[exp] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"serve_launches": launches}
+
+
 def config_copy(d: Path, name: str, **changes) -> Path:
     """examples/config.yaml with these top-level fields changed, in ``d``."""
     cfg = dataclasses.replace(load_config(str(REPO / "examples" / "config.yaml")), **changes)
@@ -2518,6 +2882,7 @@ def main() -> None:
     training = phase_training(card)
     phase_tensor_parallel(card)
     prep = phase_preprocess(card)
+    experiments = phase_experiments(card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "griffin_lim_phases",
@@ -2532,6 +2897,7 @@ def main() -> None:
             "train (device mode) -> serve CLI": training["device_serve_launches"],
             "convert_grid over 2 ranks (per rank)": training["dist_serve_launches"],
             "preprocess -> train -> serve CLI": prep["serve_launches"],
+            "train (opt_fused bucketed4) -> serve CLI": experiments["serve_launches"],
         },
         "max_abs_err": kern["a"]["max_abs_err"],
         "ms": times["main"]["ms"],

@@ -187,13 +187,16 @@ def test_optimizer_state_dict_roundtrip_keeps_bf16():
 
 
 def test_opt_fused_raises_and_buffers_are_not_optimised():
+    """``opt_fused`` with spectral norm raises, naming ``sn``, as in the JAX
+    package; the spectral-norm buffers are never given to the optimiser."""
     cfg = tiny(tcfg, sn=True)
     model = AE(cfg.model)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_optimizer(cfg.optimizer, model.parameters(), fused="bucketed4")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_optimizer(cfg.optimizer, model.parameters(), fused=True)
-    opt = make_optimizer(cfg.optimizer, model.parameters())
+    for fused in ("bucketed4", True):
+        with pytest.raises(ValueError, match="sn"):
+            make_optimizer(cfg.optimizer, model.parameters(), fused=fused, sn=True)
+        with pytest.raises(ValueError):
+            j_make_optimizer(jcfg.OptimizerConfig(), sn=True, fused=fused)
+    opt = make_optimizer(cfg.optimizer, model.parameters(), sn=True)
     held = {id(p) for g in opt.param_groups for p in g["params"]}
     buffers = dict(model.named_buffers())
     assert sum(k.endswith("weight_u") for k in buffers) == 2 + 4 * cfg.model.decoder.n_conv_blocks

@@ -159,11 +159,13 @@ def case_step(spec, mesh, rank):
 
 def case_draws(spec, mesh, rank):
     """Steps with every draw from the step generator (positions are given,
-    eps and dropout drawn at the global shape), then the mesh eval step."""
+    eps and dropout drawn at the global shape), then the mesh eval step;
+    the optimiser is the one the variant's config asks for (``opt_fused``
+    included)."""
     from adaptive_voice_conversion_tpu_torch.core.mesh import row_window
     from adaptive_voice_conversion_tpu_torch.models.ae import AE
     from adaptive_voice_conversion_tpu_torch.models.modules import init_parameters
-    from adaptive_voice_conversion_tpu_torch.train.optim import kl_lambda, make_optimizer
+    from adaptive_voice_conversion_tpu_torch.train.optim import kl_lambda, make_train_optimizer
     from adaptive_voice_conversion_tpu_torch.train.step import (
         make_eval_step,
         make_train_step,
@@ -176,7 +178,7 @@ def case_draws(spec, mesh, rank):
         model = AE(cfg.model)
         init_parameters(model, torch.Generator().manual_seed(v["seed"]))
         _split(model, mesh)
-        opt = make_optimizer(cfg.optimizer, model.parameters())
+        opt = make_train_optimizer(cfg, model.parameters())
         step = make_train_step(cfg, model, opt, mesh)
         gen = torch.Generator()
         rows = []
@@ -302,6 +304,23 @@ def case_tp_ops(spec, mesh, rank):
     return out
 
 
+def case_bank_out(spec, mesh, rank):
+    """``case_draws``, then an encoder split over the model axis given a
+    ``bank_out``, which must raise."""
+    from adaptive_voice_conversion_tpu_torch.models.ae import AE
+
+    out = case_draws(spec, mesh, rank)
+    m = spec["variants"][0]["cfg"].model.speaker_encoder
+    enc = _split(AE(spec["variants"][0]["cfg"].model), mesh).speaker_encoder
+    bank = torch.zeros(2, m.c_bank * len(enc.kernel_sizes) + m.c_in, 16)
+    try:
+        enc(torch.zeros(2, m.c_in, 16), bank_out=bank)
+        out["bank_out_error"] = None
+    except ValueError as exc:  # recorded for the test to assert on
+        out["bank_out_error"] = str(exc)
+    return out
+
+
 CASES = {
     "mesh": case_mesh,
     "step": case_step,
@@ -310,6 +329,7 @@ CASES = {
     "resume": case_resume,
     "serve": case_serve,
     "tp_ops": case_tp_ops,
+    "bank_out": case_bank_out,
 }
 
 
