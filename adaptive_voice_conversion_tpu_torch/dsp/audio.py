@@ -14,6 +14,8 @@ import torch.nn.functional as F
 from scipy import signal
 from scipy.io import wavfile
 
+from ..utils.profiling import span
+
 
 def load_wav(path: str, sr: int) -> np.ndarray:
     """Read a wav file as mono float32 in [-1, 1], resampled to ``sr``."""
@@ -60,18 +62,19 @@ def trim_silence(
 ):
     """librosa.effects.trim: drop leading/trailing frames quieter than
     ``top_db`` dB below the peak RMS. Returns (trimmed, (start, end))."""
-    rms = _frame_rms(y, frame_length, hop_length)
-    power = rms**2
-    ref = power.max()
-    if ref <= 0:
-        return y, (0, len(y))
-    db = 10.0 * np.log10(np.maximum(power, 1e-20) / ref)
-    nonsilent = np.flatnonzero(db > -top_db)
-    if len(nonsilent) == 0:
-        return y[0:0], (0, 0)
-    start = int(nonsilent[0] * hop_length)
-    end = min(len(y), int((nonsilent[-1] + 1) * hop_length))
-    return y[start:end], (start, end)
+    with span("dsp.trim"):
+        rms = _frame_rms(y, frame_length, hop_length)
+        power = rms**2
+        ref = power.max()
+        if ref <= 0:
+            return y, (0, len(y))
+        db = 10.0 * np.log10(np.maximum(power, 1e-20) / ref)
+        nonsilent = np.flatnonzero(db > -top_db)
+        if len(nonsilent) == 0:
+            return y[0:0], (0, 0)
+        start = int(nonsilent[0] * hop_length)
+        end = min(len(y), int((nonsilent[-1] + 1) * hop_length))
+        return y[start:end], (start, end)
 
 
 def preemphasis(y: np.ndarray, coef: float) -> np.ndarray:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.config import SignalConfig
+from ..utils.profiling import span
 from .audio import load_wav, preemphasis, trim_silence
 from .mel import mel_filterbank
 from .stft import stft, stft_frames, stft_np
@@ -36,12 +37,13 @@ def mel_from_wave(
     y: np.ndarray, cfg: SignalConfig = DEFAULT_SIGNAL
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Trimmed-and-preemphasized wave -> (mel (T, n_mels), mag (T, n_freq))."""
-    spec = stft_np(y, cfg.n_fft, cfg.hop_length, cfg.win_length)
-    mag = np.abs(spec)
-    mel_basis = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels)
-    mel = mel_basis @ mag
-    mel = _to_db_norm(mel, cfg).T.astype(np.float32)
-    mag = _to_db_norm(mag, cfg).T.astype(np.float32)
+    with span("dsp.mel"):
+        spec = stft_np(y, cfg.n_fft, cfg.hop_length, cfg.win_length)
+        mag = np.abs(spec)
+        mel_basis = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels)
+        mel = mel_basis @ mag
+        mel = _to_db_norm(mel, cfg).T.astype(np.float32)
+        mag = _to_db_norm(mag, cfg).T.astype(np.float32)
     return mel, mag
 
 

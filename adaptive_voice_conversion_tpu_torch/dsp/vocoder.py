@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import SignalConfig
+from ..utils.profiling import span
 from .audio import deemphasis, deemphasis_torch, trim_silence
 from .mel import mel_to_linear_matrix
 from .stft import (
@@ -238,9 +239,11 @@ def melspectrogram2wav(
 ) -> np.ndarray:
     """Vocoder on the tensor's device: Griffin-Lim and de-preemphasis there,
     one copy to the host, trim on the host (for a single utterance)."""
-    mag = mel_to_mag(mel_tm, cfg)
-    wav = deemphasis_torch(griffin_lim(mag, cfg, method=gl_method), cfg.preemphasis)
-    wav = wav.cpu().numpy()
+    with span("infer.vocode"):
+        mag = mel_to_mag(mel_tm, cfg)
+        wav = deemphasis_torch(griffin_lim(mag, cfg, method=gl_method), cfg.preemphasis)
+    with span("infer.to_host"):
+        wav = wav.cpu().numpy()
     if wav.ndim == 1:
         wav, _ = trim_silence(wav, top_db=60.0)
     return wav.astype(np.float32)

@@ -40,6 +40,7 @@ from ..dsp.vocoder import (
 )
 from ..models.ae import AE
 from ..models.masked import ae_inference_masked
+from ..utils.profiling import span
 
 
 def utt_make_frames(x: np.ndarray, frame_size: int) -> np.ndarray:
@@ -145,9 +146,12 @@ class Inferencer:
         to_dev = lambda m: torch.from_numpy(
             utt_make_frames(np.asarray(m, np.float32), f)
         ).to(self.device)
-        with torch.no_grad():
-            dec = self.model.inference(to_dev(src_mel), to_dev(tar_mel))
-        return dec[0].cpu().numpy()
+        with span("infer.assemble"):
+            src, tar = to_dev(src_mel), to_dev(tar_mel)
+        with torch.no_grad(), span("infer.model"):
+            dec = self.model.inference(src, tar)
+        with span("infer.to_host"):
+            return dec[0].cpu().numpy()
 
     def inference_one_utterance(
         self, src_mel: np.ndarray, tar_mel: np.ndarray
@@ -156,7 +160,8 @@ class Inferencer:
         dec = self.denormalize(self.convert_mel(src_mel, tar_mel))
         if not self.gpu_vocoder:
             return melspectrogram2wav_np(dec, self.config.signal), dec
-        mel = torch.from_numpy(np.asarray(dec, np.float32)).to(self.vocoder_device)
+        with span("infer.assemble"):
+            mel = torch.from_numpy(np.asarray(dec, np.float32)).to(self.vocoder_device)
         with torch.no_grad():
             wav = melspectrogram2wav(mel, self.config.signal, gl_method=self.gl_method)
         return wav, dec
@@ -250,8 +255,9 @@ class Inferencer:
         unmasked model and the plain Griffin-Lim.
         """
         self._require_frame_size_1("convert_grid")
-        src_b, sl_b, tar_b, tl_b = self._grid_batch(src_mels, tar_mels, len_bucket)
-        uniform = bool((sl_b == src_b.shape[1]).all() and (tl_b == tar_b.shape[1]).all())
+        with span("infer.assemble"):
+            src_b, sl_b, tar_b, tl_b = self._grid_batch(src_mels, tar_mels, len_bucket)
+            uniform = bool((sl_b == src_b.shape[1]).all() and (tl_b == tar_b.shape[1]).all())
         return self._serve_batch(
             src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, uniform, trim, return_mels
         )
@@ -269,12 +275,11 @@ class Inferencer:
         padded batch: the serving shape when requests are not a cross
         product. The same guarantees and options as ``convert_grid``."""
         self._require_frame_size_1("convert_pairs")
-        src_mels = [np.asarray(s, np.float32) for s, _ in pairs]
-        tar_mels = [np.asarray(t, np.float32) for _, t in pairs]
-        return self._serve_batch(
-            *self._pair_batch(src_mels, tar_mels, len_bucket), gl_method, gl_iters,
-            False, trim, return_mels,
-        )
+        with span("infer.assemble"):
+            src_mels = [np.asarray(s, np.float32) for s, _ in pairs]
+            tar_mels = [np.asarray(t, np.float32) for _, t in pairs]
+            batch = self._pair_batch(src_mels, tar_mels, len_bucket)
+        return self._serve_batch(*batch, gl_method, gl_iters, False, trim, return_mels)
 
     def _vocode(
         self, dec: torch.Tensor, dec_lens: torch.Tensor, gl_method: str,
@@ -286,15 +291,16 @@ class Inferencer:
         cfg = self.config.signal
         dev = self.vocoder_device
         as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        mel = dec.to(dev) * as_dev(self.attr["std"]) + as_dev(self.attr["mean"])
-        mag = mel_to_mag(mel, cfg)
-        if uniform:
-            wav = griffin_lim(mag, cfg, n_iter=gl_iters, method=gl_method)
-        else:
-            wav = griffin_lim_masked(
-                mag, dec_lens.to(dev), cfg, n_iter=gl_iters, method=gl_method
-            )
-        return deemphasis_torch(wav, cfg.preemphasis)
+        with span("infer.vocode"):
+            mel = dec.to(dev) * as_dev(self.attr["std"]) + as_dev(self.attr["mean"])
+            mag = mel_to_mag(mel, cfg)
+            if uniform:
+                wav = griffin_lim(mag, cfg, n_iter=gl_iters, method=gl_method)
+            else:
+                wav = griffin_lim_masked(
+                    mag, dec_lens.to(dev), cfg, n_iter=gl_iters, method=gl_method
+                )
+            return deemphasis_torch(wav, cfg.preemphasis)
 
     def _serve_on_mesh(self, src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, return_mels):
         """The mesh's share of ``_serve_batch``: the pair batch padded to a
@@ -331,7 +337,8 @@ class Inferencer:
         runs whatever the padding (``_serve_on_mesh``)."""
         gl_method = self.gl_method if gl_method is None else gl_method
         hop = self.config.signal.hop_length
-        crop_lens = sl_b.tolist()
+        with span("infer.assemble"):
+            crop_lens = sl_b.tolist()
         n = len(crop_lens)
         with torch.no_grad():
             if self.mesh is not None:
@@ -339,13 +346,15 @@ class Inferencer:
                     src_b, sl_b, tar_b, tl_b, gl_method, gl_iters, return_mels
                 )
             else:
-                if uniform:
-                    dec = self.model.inference(src_b, tar_b)
-                    dec_lens = torch.full((n,), dec.shape[1], dtype=torch.int64, device=dec.device)
-                else:
-                    dec, dec_lens = ae_inference_masked(self.model, src_b, sl_b, tar_b, tl_b)
+                with span("infer.model"):
+                    if uniform:
+                        dec = self.model.inference(src_b, tar_b)
+                        dec_lens = torch.full((n,), dec.shape[1], dtype=torch.int64, device=dec.device)
+                    else:
+                        dec, dec_lens = ae_inference_masked(self.model, src_b, sl_b, tar_b, tl_b)
                 wavs = self._vocode(dec, dec_lens, gl_method, gl_iters, uniform)
-            wavs = wavs.cpu().numpy()
+            with span("infer.to_host"):
+                wavs = wavs.cpu().numpy()
         out: List[np.ndarray] = []
         for k in range(n):
             w = wavs[k][: hop * (crop_lens[k] - 1)]
@@ -354,5 +363,6 @@ class Inferencer:
             out.append(w.astype(np.float32))
         if not return_mels:
             return out
-        dec_host, dl = dec.cpu().numpy(), dec_lens.cpu().numpy()
+        with span("infer.to_host"):
+            dec_host, dl = dec.cpu().numpy(), dec_lens.cpu().numpy()
         return out, [self.denormalize(dec_host[k, : dl[k]]) for k in range(n)]

@@ -36,6 +36,7 @@ from ..data.device_sampler import sample_segments
 from ..data.sharded import sample_segments_sharded
 from ..models.ae import AE
 from ..models.modules import spectral_norm_update
+from ..utils.profiling import span
 from .optim import TorchAdam, kl_lambda
 
 
@@ -99,22 +100,25 @@ def make_train_step(
     lambda_rec = cfg.loss.lambda_rec
 
     def step(x, lambda_kl, eps=None, generator=None):
-        model.train()
-        x = from_wire_format(x)
-        optimizer.zero_grad(set_to_none=True)
-        rows = None if mesh is None else row_window(mesh, x.shape[0])
-        loss_rec, loss_kl, _ = loss_terms(model, cfg, x, eps, generator, rows)
-        loss = lambda_rec * loss_rec + lambda_kl * loss_kl
-        loss.backward()
-        loss, loss_rec, loss_kl = loss.detach(), loss_rec.detach(), loss_kl.detach()
-        if mesh is not None:
-            loss, loss_rec, loss_kl = all_reduce_gradients(
-                model, mesh, torch.stack([loss, loss_rec, loss_kl])
-            )
-        if sn:
-            # from the weights this step's forward saw, not the updated ones
-            spectral_norm_update(model)
-        grad_norm = optimizer.step()
+        with span("train.forward"):
+            model.train()
+            x = from_wire_format(x)
+            optimizer.zero_grad(set_to_none=True)
+            rows = None if mesh is None else row_window(mesh, x.shape[0])
+            loss_rec, loss_kl, _ = loss_terms(model, cfg, x, eps, generator, rows)
+            loss = lambda_rec * loss_rec + lambda_kl * loss_kl
+        with span("train.backward"):
+            loss.backward()
+        with span("train.update"):
+            loss, loss_rec, loss_kl = loss.detach(), loss_rec.detach(), loss_kl.detach()
+            if mesh is not None:
+                loss, loss_rec, loss_kl = all_reduce_gradients(
+                    model, mesh, torch.stack([loss, loss_rec, loss_kl])
+                )
+            if sn:
+                # from the weights this step's forward saw, not the updated ones
+                spectral_norm_update(model)
+            grad_norm = optimizer.step()
         return {"loss": loss, "loss_rec": loss_rec, "loss_kl": loss_kl, "grad_norm": grad_norm}
 
     return step
@@ -187,12 +191,13 @@ def make_device_data_train_step(
         out = []
         for i in range(inner_steps):
             it = it0 + i
-            gen.manual_seed(step_seed(seed, it))
-            if sharded_data:
-                x = sample_segments_sharded(packed, starts, seg, b, seed, it, mesh)
-            else:
-                x = sample_segments(packed, starts, seg, b, gen, n_starts, mesh)
-            lam = kl_lambda(it, cfg.loss.lambda_kl, cfg.annealing_iters)
+            with span("train.sample"):
+                gen.manual_seed(step_seed(seed, it))
+                if sharded_data:
+                    x = sample_segments_sharded(packed, starts, seg, b, seed, it, mesh)
+                else:
+                    x = sample_segments(packed, starts, seg, b, gen, n_starts, mesh)
+                lam = kl_lambda(it, cfg.loss.lambda_kl, cfg.annealing_iters)
             m = step(x, lam, generator=gen)
             out.append(torch.stack([m["loss"], m["loss_rec"], m["loss_kl"], m["grad_norm"]]))
         return torch.stack(out)

@@ -1,14 +1,38 @@
 """Tracing hooks: a ``torch.profiler`` trace of a code region
-(``profile_trace``) and a blocking wall-clock timer (``step_timer``)."""
+(``profile_trace``), and the program's own spans at its layer boundaries
+(``span``), read back by ``span_seconds``.
+
+A span is on only while a torch profiler records, whatever its activities
+(``profile_trace``, ``cli/train --profile_dir``, ``tools/perf_probes``, any
+``torch.profiler.profile`` around the program); otherwise it costs one flag
+read. While on, it opens a ``record_function`` named ``"## <name>"``, so the
+profiler's trace shows it among the host's events, and appends ``(name,
+start ns, end ns)`` on the ``time.time_ns()`` clock, the profiler's own, to
+``SPAN_LOG``. Spans are flat: no span encloses another, so the innermost
+host event at any moment names one layer. The names:
+
+    dsp.mel         dsp/features.py::mel_from_wave: host STFT, mel, dB
+    dsp.trim        dsp/audio.py::trim_silence: every call
+    infer.assemble  the Inferencer's inputs: framing, padding, stacking,
+                    the cross product, host-to-device copies, length reads
+    infer.model     the model's forward in the Inferencer
+    infer.vocode    mel to magnitude, Griffin-Lim, de-emphasis
+    infer.to_host   each copy of a result to the host (the wait included)
+    train.sample    a multi-step's draw: seeds, segments, the KL weight
+    train.forward   the step's zero_grad through its loss
+    train.backward  loss.backward()
+    train.update    after backward through optimizer.step()
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from typing import Iterator, List, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -34,20 +58,48 @@ def profile_trace(logdir: str) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
-def step_timer(label: str, result_holder: Optional[dict] = None) -> Iterator[None]:
-    """Blocking wall-clock timer of the enclosed region: on exit it waits for
-    the current CUDA device's queued work (nothing more on a host without
-    one), then stores the seconds under ``label`` in ``result_holder`` or
-    prints them."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if result_holder is not None:
-            result_holder[label] = dt
+class SpanLog:
+    """The recorded spans, in the order they closed, up to ``cap``; the spans
+    that came after the cap are counted in ``dropped``."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.spans: List[Tuple[str, int, int]] = []
+        self.dropped = 0
+
+    def add(self, name: str, start_ns: int, end_ns: int) -> None:
+        if len(self.spans) < self.cap:
+            self.spans.append((name, start_ns, end_ns))
         else:
-            print(f"[{label}] {dt * 1000:.2f} ms")
+            self.dropped += 1
+
+
+SPAN_LOG = SpanLog(cap=1_000_000)
+
+
+@contextlib.contextmanager
+def _recorded(name: str) -> Iterator[None]:
+    with torch.profiler.record_function("## " + name):
+        t0 = time.time_ns()
+        try:
+            yield
+        finally:
+            SPAN_LOG.add(name, t0, time.time_ns())
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager around one layer's work: recorded while a torch
+    profiler records (the module docstring), nothing otherwise. It adds no
+    synchronisation."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _recorded(name)
+
+
+def span_seconds(name: str, t0_ns: int, t1_ns: int) -> float:
+    """Total seconds of the spans named ``name`` that lie wholly inside
+    [t0_ns, t1_ns] on the ``time.time_ns()`` clock."""
+    return sum(e - s for n, s, e in SPAN_LOG.spans if n == name and s >= t0_ns and e <= t1_ns) / 1e9
