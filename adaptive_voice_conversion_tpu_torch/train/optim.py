@@ -37,7 +37,7 @@ The KL anneal (``kl_lambda``) is a pure function of the iteration.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -107,8 +107,27 @@ class TorchAdam(torch.optim.Optimizer):
                     st[key] = st[key].to(device, self.state_dtype)
             st["step"] = int(st["step"])
 
+    def _state_keys(self) -> list:
+        """The keys of ``state`` that every step updates: the parameters."""
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def step_count(self) -> Optional[int]:
+        """The steps taken, when every key of ``_state_keys`` has a state
+        and all have taken the same number; None otherwise (before the
+        first step, or a parameter that took no step)."""
+        counts = {self.state[k]["step"] if self.state.get(k) else None for k in self._state_keys()}
+        return counts.pop() if len(counts) == 1 else None
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` more steps on every state: the steps a CUDA graph
+        replayed without running this object's host code
+        (train/step.py)."""
+        for k in self._state_keys():
+            self.state[k]["step"] += n
+
     @torch.no_grad()
-    def step(self, closure=None) -> torch.Tensor:
+    def step(self, closure=None, bias_corrections=None) -> torch.Tensor:
+        """``bias_corrections``: see ``_update``."""
         if closure is not None:
             raise ValueError("TorchAdam.step takes no closure")
         with_grad = [p for g in self.param_groups for p in g["params"] if p.grad is not None]
@@ -120,15 +139,21 @@ class TorchAdam(torch.optim.Optimizer):
             if not params:
                 continue
             states = [self._init_state(p, p, group["amsgrad"]) for p in params]
-            upd = self._update(group, [p.grad for p in params], lambda: params, states, total)
+            upd = self._update(
+                group, [p.grad for p in params], lambda: params, states, total, bias_corrections
+            )
             torch._foreach_add_(params, upd, alpha=-group["lr"])
         return total
 
-    def _update(self, group: dict, grads, params, states, total) -> list:
+    def _update(self, group: dict, grads, params, states, total, bias_corrections=None) -> list:
         """Adam's update direction ``(m / bc1) / (sqrt(v_hat / bc2) + eps)``
         for each tensor of ``grads``, its moments in ``states`` advanced in
         place. ``params`` is called for the tensors that weight decay adds
-        in, only when there is weight decay."""
+        in, only when there is weight decay. ``bias_corrections`` is
+        ``bias_correction_operands`` of the step being taken as two 0-dim
+        f32 tensors on the device, which a CUDA graph reads anew at every
+        replay (train/step.py); None takes ``(bc1, bc2)`` as floats from
+        the step count."""
         b1, b2 = group["betas"]
         amsgrad = group["amsgrad"]
         # g * clip / max(norm, clip): 1 exactly below the threshold; the
@@ -140,8 +165,13 @@ class TorchAdam(torch.optim.Optimizer):
         # every tensor of a group has taken the same number of steps
         for st in states:
             st["step"] += 1
-        t = states[0]["step"]
-        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        if bias_corrections is None:
+            t = states[0]["step"]
+            bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+            div = torch._foreach_div
+        else:
+            bc1, bc2 = bias_corrections
+            div = _by_bias_correction
 
         f32 = lambda key: [st[key].float() for st in states]
         if amsgrad or self.state_dtype == torch.float32:
@@ -164,10 +194,10 @@ class TorchAdam(torch.optim.Optimizer):
             torch._foreach_maximum_(v_hat, v)
         else:
             v_hat = v
-        denom = torch._foreach_div(v_hat, bc2)
+        denom = div(v_hat, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, group["eps"])
-        upd = torch._foreach_div(m, bc1)
+        upd = div(m, bc1)
         torch._foreach_div_(upd, denom)
 
         if self.state_dtype != torch.float32:
@@ -179,6 +209,27 @@ class TorchAdam(torch.optim.Optimizer):
                 if amsgrad:
                     st["max_exp_avg_sq"].copy_(vh_i)
         return upd
+
+
+def bias_correction_operands(betas, t: int, device: torch.device) -> tuple:
+    """Adam's bias corrections ``1 - b1**t``, ``1 - b2**t`` as the float
+    path of ``TorchAdam._update`` applies them on ``device``:
+    ``torch._foreach_div`` by a float multiplies by its reciprocal, taken in
+    double and rounded to f32, on CUDA, and divides by it on the CPU. As
+    0-dim f32 tensors (``step(bias_corrections=...)``) they give that
+    path's numbers bit for bit."""
+    bc = tuple(1.0 - b ** t for b in betas)
+    return tuple(1.0 / c for c in bc) if device.type == "cuda" else bc
+
+
+def _by_bias_correction(tensors, operand: torch.Tensor) -> list:
+    """``tensors`` divided by a bias correction given as its
+    ``bias_correction_operands`` value in a 0-dim f32 tensor on their
+    device, which is not read on the host: a CUDA graph reads it anew at
+    every replay."""
+    if operand.device.type == "cuda":
+        return torch._foreach_mul(tensors, operand)
+    return torch._foreach_div(tensors, operand)
 
 
 def bucket_plan(sizes, n_buckets: int):
@@ -229,8 +280,11 @@ class FlatAdam(TorchAdam):
                 out[i] = part.view(params[i].shape)
         return out
 
+    def _state_keys(self) -> list:
+        return [f"bucket{k}" for k in range(len(self.members))]
+
     @torch.no_grad()
-    def step(self, closure=None) -> torch.Tensor:
+    def step(self, closure=None, bias_corrections=None) -> torch.Tensor:
         if closure is not None:
             raise ValueError("FlatAdam.step takes no closure")
         group = self.param_groups[0]
@@ -242,7 +296,7 @@ class FlatAdam(TorchAdam):
         else:
             total = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g_flat)))
         states = [self._init_state(f"bucket{k}", g, group["amsgrad"]) for k, g in enumerate(g_flat)]
-        upd = self._update(group, g_flat, lambda: self._pack(params), states, total)
+        upd = self._update(group, g_flat, lambda: self._pack(params), states, total, bias_corrections)
         torch._foreach_add_(params, self._unpack(upd), alpha=-group["lr"])
         return total
 

@@ -22,6 +22,10 @@ host event at any moment names one layer. The names:
     train.forward   the step's zero_grad through its loss
     train.backward  loss.backward()
     train.update    after backward through optimizer.step()
+    train.replay    a step replayed from the multi-step's CUDA graph: the
+                    seed, the copy of the step's scalars, the replay, the
+                    copy of its metrics (train/step.py ``StepGraph``); a
+                    replayed step emits no other span
 """
 
 from __future__ import annotations

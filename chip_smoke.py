@@ -106,7 +106,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      bank, residual, bank_split, parts and opt through its CLI, each in a
      subprocess (all started together, each run in its turn while the
      others wait), their lines printed, then profile, whose trace must be
-     written and non-empty.
+     written and non-empty;
+ 13. the device-mode step as a CUDA graph (train/step.py ``StepGraph``) at
+     the same width, TF32 on as cli.train runs it, in f32, with spectral
+     norm, in bf16 and with opt_fused bucketed4 and bf16 moments: 3 calls
+     of 10 steps replayed from one captured step
+     against the same calls run eagerly from the same weights and seed,
+     every step's four metrics and every parameter, buffer and optimiser
+     moment equal bit for bit (cuDNN deterministic) or within 1e-4 relative
+     (cuDNN's default algorithms); a run resumed from the state after the
+     first graphed call against the continuous run, alike; each mode's ms
+     a step.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
@@ -145,6 +155,7 @@ from adaptive_voice_conversion_tpu_torch.data.device_sampler import (
     DeviceResidentDataset,
     draw_indices,
     gather_rows,
+    sample_segments,
 )
 from adaptive_voice_conversion_tpu_torch.data.loader import batch_iterator, device_prefetch
 from adaptive_voice_conversion_tpu_torch.dsp.audio import save_wav
@@ -173,7 +184,11 @@ from adaptive_voice_conversion_tpu_torch.models.weights import (
     save_checkpoint,
 )
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
-from adaptive_voice_conversion_tpu_torch.train.optim import kl_lambda, make_optimizer
+from adaptive_voice_conversion_tpu_torch.train.optim import (
+    kl_lambda,
+    make_optimizer,
+    make_train_optimizer,
+)
 from adaptive_voice_conversion_tpu_torch.train.step import (
     make_device_data_train_step,
     make_train_step,
@@ -2857,6 +2872,157 @@ def config_copy(d: Path, name: str, **changes) -> Path:
     return path
 
 
+TOL_GRAPH = 1e-4
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in f64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    d, n = float((a - b).norm()), float(b.norm())
+    return d / n if n else d
+
+
+def eager_multi_step(cfg, model, opt, inner: int):
+    """The multi-step's eager loop (train/step.py), step by step: each step
+    seeds the generator, draws its batch and runs the step with the KL
+    weight as a float and the optimiser's own bias corrections."""
+    step = make_train_step(cfg, model, opt)
+    gen = torch.Generator(device=next(model.parameters()).device)
+    dl = cfg.data_loader
+
+    def call(packed, starts, seed, it0):
+        rows = []
+        for it in range(it0, it0 + inner):
+            gen.manual_seed(step_seed(seed, it))
+            x = sample_segments(packed, starts, dl.segment_size, dl.batch_size, gen)
+            m = step(x, kl_lambda(it, cfg.loss.lambda_kl, cfg.annealing_iters), generator=gen)
+            rows.append(torch.stack([m["loss"], m["loss_rec"], m["loss_kl"], m["grad_norm"]]))
+        return torch.stack(rows)
+
+    return call
+
+
+def graph_vs_eager(cfg, seed: int, calls: int = 3, inner: int = 10, n_frames: int = 60_000) -> dict:
+    """``calls`` multi-step calls of ``inner`` steps with the step replayed
+    as a CUDA graph against the same calls run eagerly (``eager_multi_step``)
+    from the same weights, corpus and seed, on the card at the backend flags
+    in force; and a run resumed from the graphed run's state after its
+    second call (the first graphed one) against the graphed run's third.
+    Returns each comparison's largest relative gap: the metrics per entry,
+    the tensors per tensor (Frobenius), and whether each is bit for bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_mels = cfg.model.content_encoder.c_in
+    packed = torch.randn(n_frames, n_mels, generator=gen, device=dev)
+    starts = torch.arange(0, n_frames - cfg.data_loader.segment_size, 3, device=dev)
+
+    def fresh(state=None):
+        model = AE(cfg.model)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        model.to(dev)
+        opt = make_train_optimizer(cfg, model.parameters())
+        if state is not None:
+            model.load_state_dict(state[0])
+            opt.load_state_dict(state[1])
+        return model, opt
+
+    def tensors(model, opt) -> dict:
+        out = {f"model.{k}": v for k, v in model.state_dict().items()}
+        for i, st in enumerate(opt.state_dict()["state"].values()):
+            out.update({f"opt.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+        return out
+
+    def compare(a: torch.Tensor, b: torch.Tensor, ta: dict, tb: dict) -> dict:
+        rel = ((a.double() - b.double()).abs() / b.double().abs()).max().item()
+        gaps = {k: _rel_gap(ta[k], tb[k]) for k in tb}
+        worst = max(gaps, key=gaps.get)
+        exact = torch.equal(a, b) and all(torch.equal(ta[k], tb[k]) for k in tb)
+        return {"metrics": rel, "tensors": gaps[worst], "worst": worst, "exact": exact}
+
+    runs = {}
+    for mode in ("graph", "eager"):
+        model, opt = fresh()
+        if mode == "graph":
+            multi = make_device_data_train_step(cfg, model, opt, inner_steps=inner)
+        else:
+            multi = eager_multi_step(cfg, model, opt, inner)
+        outs, times = [], []
+        for k in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(multi(packed, starts, seed, k * inner))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / inner)
+            if k == 1:
+                saved = copy.deepcopy((model.state_dict(), opt.state_dict()))
+        runs[mode] = {"out": torch.stack(outs), "tensors": tensors(model, opt), "saved": saved,
+                      "ms": times, "steps": opt.step_count(),
+                      "replayed": mode == "graph" and multi.step_graph.graph is not None}
+    g, e = runs["graph"], runs["eager"]
+    model, opt = fresh(g["saved"])
+    resumed = make_device_data_train_step(cfg, model, opt, inner_steps=inner)
+    r_out = resumed(packed, starts, seed, (calls - 1) * inner)
+    return {
+        "graph": compare(g["out"], e["out"], g["tensors"], e["tensors"]),
+        "resume": compare(r_out, g["out"][-1], tensors(model, opt), g["tensors"]),
+        "finite": bool(torch.isfinite(g["out"]).all()),
+        "replayed": g["replayed"],
+        "steps": (g["steps"], e["steps"], calls * inner),
+        "ms": {"graph": g["ms"], "eager": e["ms"]},
+    }
+
+
+def check_graph_vs_eager(r: dict, what: str, exact: bool) -> None:
+    check(r["finite"], f"{what}: the graphed steps' metrics are not finite")
+    check(r["replayed"], f"{what}: the graphed run did not replay a graph")
+    check(len(set(r["steps"])) == 1, f"{what}: optimiser step counts {r['steps']} differ")
+    for key in ("graph", "resume"):
+        c = r[key]
+        if exact:
+            check(c["exact"], f"{what}: {key} not bit for bit: metrics {c['metrics']:.3e}, "
+                  f"tensors {c['tensors']:.3e} ({c['worst']})")
+        check(max(c["metrics"], c["tensors"]) <= TOL_GRAPH,
+              f"{what}: {key} gap metrics {c['metrics']:.3e}, tensors {c['tensors']:.3e} "
+              f"({c['worst']}) > {TOL_GRAPH}")
+
+
+def graph_variants(cfg) -> dict:
+    """The configurations that share the graphed step: f32, spectral norm,
+    bf16 compute, and the flat optimiser with bf16 moments."""
+    sn = dataclasses.replace(cfg.model, decoder=dataclasses.replace(cfg.model.decoder, sn=True))
+    return {
+        "f32": cfg,
+        "sn": dataclasses.replace(cfg, model=sn),
+        "bf16": dataclasses.replace(cfg, compute_dtype="bfloat16"),
+        "bucketed4": dataclasses.replace(cfg, opt_fused="bucketed4", opt_state_dtype="bfloat16"),
+    }
+
+
+def phase_train_graph(card: str) -> None:
+    """13: the step replayed as a CUDA graph against eager steps."""
+    cfg = load_config(str(REPO / "examples" / "config.yaml"))
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, c in graph_variants(cfg).items():
+            for deterministic in (True, False):
+                torch.backends.cudnn.deterministic = deterministic
+                t0 = time.perf_counter()
+                r = graph_vs_eager(c, SEED + 13)
+                what = f"13 graph {name} cudnn.deterministic={deterministic}"
+                check_graph_vs_eager(r, what, exact=deterministic)
+                ms = {k: ", ".join(f"{v:.2f}" for v in r["ms"][k]) for k in r["ms"]}
+                log(f"[train] {what}: 3 calls x 10 steps, batch {c.data_loader.batch_size} x "
+                    f"{c.data_loader.segment_size} x {c.model.content_encoder.c_in}, TF32 on: graphed "
+                    f"vs eager bit for bit {r['graph']['exact']} (metrics {r['graph']['metrics']:.3e}, "
+                    f"tensors {r['graph']['tensors']:.3e}, worst {r['graph']['worst']}); resumed after "
+                    f"the first graphed call vs continuous bit for bit {r['resume']['exact']}; ms a "
+                    f"step by call, graphed [{ms['graph']}] (the first eager, the second with the "
+                    f"capture), eager [{ms['eager']}]; {time.perf_counter() - t0:.1f} s ({card})")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+
+
 def phase_training(card: str) -> dict:
     cfg = load_config(str(REPO / "examples" / "config.yaml"))
     phase_train_step_parity(cfg)
@@ -2883,6 +3049,7 @@ def main() -> None:
     phase_tensor_parallel(card)
     prep = phase_preprocess(card)
     experiments = phase_experiments(card)
+    phase_train_graph(card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "griffin_lim_phases",

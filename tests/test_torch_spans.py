@@ -32,7 +32,7 @@ from test_torch_masked import N_MELS, SIGNAL, tiny_model_configs
 
 PORT = Path(profiling.__file__).resolve().parents[1]
 NAMES = ("dsp.mel", "dsp.trim", "infer.assemble", "infer.model", "infer.vocode", "infer.to_host",
-         "train.sample", "train.forward", "train.backward", "train.update")
+         "train.sample", "train.forward", "train.backward", "train.update", "train.replay")
 SEG, BATCH = 16, 4
 
 
