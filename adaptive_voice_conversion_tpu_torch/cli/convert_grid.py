@@ -40,6 +40,11 @@ def build_parser() -> ArgumentParser:
                         help="round padded shapes up to this many frames "
                         "(results unchanged: the masked path is exact under "
                         "any padding)")
+    parser.add_argument("--vocoder_ckpt", default=None,
+                        help="HiFi-GAN generator checkpoint (a state_dict, weight-normed "
+                        "or not, or a ParallelWaveGAN checkpoint); required where the "
+                        "config's vocoder section names hifigan, which then vocodes "
+                        "in place of Griffin-Lim and ignores the Griffin-Lim options")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest"],
                         help="TF32 switches: default leaves PyTorch's, "
@@ -56,11 +61,15 @@ def main(argv=None) -> None:
     from ..dsp.audio import save_wav
     from ..dsp.features import get_spectrograms
     from ..infer.inferencer import Inferencer
+    from ..models.weights import load_generator
 
     config = load_config(args.config)
+    vocoder = (load_generator(args.vocoder_ckpt, config.vocoder, args.device)
+               if args.vocoder_ckpt else None)
     inferencer = Inferencer.from_model_path(
         config, args.model, args.attr, device=args.device,
         gl_method=args.gl_method, precision=args.precision,
+        vocoder=vocoder,
     )
 
     def featurize(paths):

@@ -28,6 +28,11 @@ def build_parser() -> ArgumentParser:
                         help="Griffin-Lim: the exact torch.fft loop, or the "
                         "fused CUDA kernel's hybrid schedule (pallas: the JAX "
                         "package's name for fused)")
+    parser.add_argument("--vocoder_ckpt", default=None,
+                        help="HiFi-GAN generator checkpoint (a state_dict, weight-normed "
+                        "or not, or a ParallelWaveGAN checkpoint); required where the "
+                        "config's vocoder section names hifigan, which then vocodes "
+                        "in place of Griffin-Lim and ignores the Griffin-Lim options")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest"],
                         help="TF32 switches: default leaves PyTorch's, "
@@ -42,12 +47,15 @@ def main(argv=None) -> None:
 
     from ..core.config import load_config
     from ..infer.inferencer import Inferencer
+    from ..models.weights import load_generator
 
     config = load_config(args.config)
+    vocoder = (load_generator(args.vocoder_ckpt, config.vocoder, args.device)
+               if args.vocoder_ckpt else None)
     inferencer = Inferencer.from_model_path(
         config, args.model, args.attr, device=args.device,
         gl_method=args.gl_method, precision=args.precision,
-        gpu_vocoder=not args.cpu_vocoder,
+        gpu_vocoder=not args.cpu_vocoder, vocoder=vocoder,
     )
     inferencer.inference_from_path(args.source, args.target, args.output)
 

@@ -11,6 +11,7 @@ pulls in jax.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -103,6 +104,32 @@ class SignalConfig:
 
 
 @dataclass(frozen=True)
+class VocoderConfig:
+    """The vocoder after the model. ``kind`` "griffin_lim" (the default, and
+    the JAX package's only vocoder) reads no other field. "hifigan" is the
+    HiFi-GAN V1 generator (Kong et al., arXiv:2010.05646) in
+    ParallelWaveGAN's ``HiFiGANGenerator`` layout (models/hifigan.py), at
+    24 kHz and hop 300 as that project's VCTK recipe runs it, taking this
+    system's 512-channel normalised mel: ``prod(upsample_scales)`` must equal
+    ``signal.hop_length``, ``in_channels`` ``signal.n_mels``, and each
+    upsampling kernel twice its scale."""
+
+    kind: str = "griffin_lim"
+    in_channels: int = 512
+    out_channels: int = 1
+    channels: int = 512
+    kernel_size: int = 7
+    upsample_scales: Sequence[int] = (5, 5, 4, 3)
+    upsample_kernel_sizes: Sequence[int] = (10, 10, 8, 6)
+    resblock_kernel_sizes: Sequence[int] = (3, 7, 11)
+    resblock_dilations: Sequence[Sequence[int]] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    negative_slope: float = 0.1
+
+
+VOCODER_KINDS = ("griffin_lim", "hifigan")
+
+
+@dataclass(frozen=True)
 class AEConfig:
     speaker_encoder: SpeakerEncoderConfig = field(default_factory=SpeakerEncoderConfig)
     content_encoder: ContentEncoderConfig = field(default_factory=ContentEncoderConfig)
@@ -117,6 +144,7 @@ class TrainConfig:
     loss: LambdaConfig = field(default_factory=LambdaConfig)
     annealing_iters: int = 20000
     signal: SignalConfig = field(default_factory=SignalConfig)
+    vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     # training-side knobs, every one read by train/ and data/:
     # compute_dtype, opt_state_dtype and opt_fused by the step and the
     # optimiser; data_dtype, input_mode, device_data_budget_bytes,
@@ -173,8 +201,32 @@ def _parse_chunk_repeats(v):
     return iv
 
 
+def _parse_vocoder(raw: dict, signal: SignalConfig) -> VocoderConfig:
+    """The ``vocoder`` section; absent, Griffin-Lim. Raises on an unknown
+    kind and on a generator that does not fit the signal."""
+    kw = _filter_kwargs(VocoderConfig, raw)
+    if "resblock_dilations" in kw:
+        kw["resblock_dilations"] = tuple(tuple(d) for d in kw["resblock_dilations"])
+    voc = VocoderConfig(**kw)
+    if voc.kind not in VOCODER_KINDS:
+        raise ValueError(f"config vocoder.kind={voc.kind!r}: expected one of {VOCODER_KINDS}")
+    if voc.kind == "hifigan":
+        hop = math.prod(voc.upsample_scales)
+        if hop != signal.hop_length or voc.in_channels != signal.n_mels:
+            raise ValueError(
+                f"config vocoder: upsample_scales {list(voc.upsample_scales)} give hop {hop} and "
+                f"in_channels is {voc.in_channels}; the signal has hop_length "
+                f"{signal.hop_length} and n_mels {signal.n_mels}")
+        if list(voc.upsample_kernel_sizes) != [2 * s for s in voc.upsample_scales]:
+            raise ValueError("config vocoder: each upsample kernel size must be twice its scale")
+        if len(voc.resblock_dilations) != len(voc.resblock_kernel_sizes):
+            raise ValueError("config vocoder: one dilation list per residual block kernel size")
+    return voc
+
+
 def config_from_dict(raw: dict) -> TrainConfig:
     """Build a TrainConfig from a reference-format config dict."""
+    signal = SignalConfig(**_filter_kwargs(SignalConfig, raw.get("signal", {})))
     model = AEConfig(
         speaker_encoder=SpeakerEncoderConfig(
             **_filter_kwargs(SpeakerEncoderConfig, raw.get("SpeakerEncoder", {}))
@@ -194,7 +246,8 @@ def config_from_dict(raw: dict) -> TrainConfig:
         ),
         loss=LambdaConfig(**_filter_kwargs(LambdaConfig, raw.get("lambda", {}))),
         annealing_iters=int(raw.get("annealing_iters", 20000)),
-        signal=SignalConfig(**_filter_kwargs(SignalConfig, raw.get("signal", {}))),
+        signal=signal,
+        vocoder=_parse_vocoder(raw.get("vocoder", {}), signal),
         compute_dtype=str(raw.get("compute_dtype", "float32")),
         data_dtype=str(raw.get("data_dtype", "float32")),
         input_mode=str(raw.get("input_mode", "auto")),
@@ -210,13 +263,16 @@ def config_from_dict(raw: dict) -> TrainConfig:
 
 
 def config_to_dict(cfg: TrainConfig) -> dict:
-    """Dump back to the reference-compatible YAML schema."""
+    """Dump back to the reference-compatible YAML schema; the ``vocoder``
+    section only where it is not Griffin-Lim."""
+
+    def plain(v):
+        return [plain(x) for x in v] if isinstance(v, (tuple, list)) else v
 
     def asdict(dc):
-        d = dataclasses.asdict(dc)
-        return {k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()}
+        return {k: plain(v) for k, v in dataclasses.asdict(dc).items()}
 
-    return {
+    out = {
         "SpeakerEncoder": asdict(cfg.model.speaker_encoder),
         "ContentEncoder": asdict(cfg.model.content_encoder),
         "Decoder": asdict(cfg.model.decoder),
@@ -235,6 +291,9 @@ def config_to_dict(cfg: TrainConfig) -> dict:
         "opt_state_dtype": cfg.opt_state_dtype,
         "opt_fused": cfg.opt_fused,
     }
+    if cfg.vocoder.kind != "griffin_lim":
+        out["vocoder"] = asdict(cfg.vocoder)
+    return out
 
 
 def load_config(path: str) -> TrainConfig:

@@ -2,13 +2,15 @@
 
 Source wav -> content mu; target wav (one utterance of an unseen speaker)
 -> speaker embedding; the AdaIN decoder recombines them; Griffin-Lim
-vocodes. Featurization is host numpy; the model and the vocoder run on the
-Inferencer's device (``cuda`` unless the caller asks for the CPU).
+vocodes, or, where the config's ``vocoder`` section names "hifigan", the
+HiFi-GAN generator (models/hifigan.py) does, from the decoder's normalised
+output as it is. Featurization is host numpy; the model and the vocoder run
+on the Inferencer's device (``cuda`` unless the caller asks for the CPU).
 
 ``convert_grid`` and ``convert_pairs`` serve many pairs in one padded
 batch through the length-masked model (models/masked.py) and one ragged
-Griffin-Lim call (dsp/vocoder.py), so mixed-length inputs convert as
-one-at-a-time conversion would convert them.
+Griffin-Lim call (dsp/vocoder.py) or one length-masked generator call, so
+mixed-length inputs convert as one-at-a-time conversion would convert them.
 
 With a mesh (core/mesh.py) the pair batch is split over the ranks: every
 rank is handed the same request, converts and vocodes its contiguous rows
@@ -39,6 +41,7 @@ from ..dsp.vocoder import (
     melspectrogram2wav_np,
 )
 from ..models.ae import AE
+from ..models.hifigan import Generator
 from ..models.masked import ae_inference_masked
 from ..utils.profiling import span
 
@@ -63,6 +66,7 @@ class Inferencer:
         device: DeviceLike = None,
         gpu_vocoder: bool = True,
         mesh: Optional[Mesh] = None,
+        vocoder: Optional[Generator] = None,
     ):
         """``model`` is moved to ``device`` (default ``cuda``; the rank's GPU
         under a process group).
@@ -77,7 +81,12 @@ class Inferencer:
         ``gl_method`` is (as the JAX package's ``use_tpu_vocoder=False``),
         a batch with the torch vocoder on the CPU. ``mesh``: serve
         ``convert_grid`` / ``convert_pairs`` over its ranks (the module
-        docstring); every rank must make the same calls."""
+        docstring); every rank must make the same calls.
+
+        Where ``config.vocoder.kind`` is "hifigan", ``vocoder`` (required
+        then, refused with Griffin-Lim; models/weights.py ``load_generator``
+        reads a checkpoint) vocodes on ``device``: ``gl_method`` and
+        ``gl_iters`` are then ignored, and ``gpu_vocoder=False`` raises."""
         if gl_method not in GL_METHODS:
             raise ValueError(f"gl_method={gl_method!r}: expected one of {GL_METHODS}")
         set_precision(precision)
@@ -90,6 +99,22 @@ class Inferencer:
         self.vocoder_device = self.device if gpu_vocoder else torch.device("cpu")
         with open(attr_path, "rb") as f:
             self.attr = pickle.load(f)
+        self.vocoder = self._check_vocoder(vocoder)
+
+    def _check_vocoder(self, vocoder: Optional[Generator]) -> Optional[Generator]:
+        """The HiFi-GAN generator on the device, or None for Griffin-Lim."""
+        if self.config.vocoder.kind == "griffin_lim":
+            if vocoder is not None:
+                raise ValueError("the config's vocoder is Griffin-Lim: a generator was given "
+                                 "but the config has no hifigan vocoder section")
+            return None
+        if vocoder is None:
+            raise ValueError("the config's vocoder is hifigan: give the generator "
+                             "(vocoder=; --vocoder_ckpt on the CLIs)")
+        if not self.gpu_vocoder:
+            raise ValueError("gpu_vocoder=False selects the numpy Griffin-Lim oracle; the "
+                             "config's vocoder is hifigan")
+        return vocoder.to(self.device).eval()
 
     @classmethod
     def from_torch_checkpoint(
@@ -156,8 +181,12 @@ class Inferencer:
     def inference_one_utterance(
         self, src_mel: np.ndarray, tar_mel: np.ndarray
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns (wav, converted denormalized mel)."""
-        dec = self.denormalize(self.convert_mel(src_mel, tar_mel))
+        """Returns (wav, converted denormalized mel). The generator, where
+        the config names it, takes the normalized mel."""
+        norm = self.convert_mel(src_mel, tar_mel)
+        dec = self.denormalize(norm)
+        if self.vocoder is not None:
+            return self._generate_one(norm), dec
         if not self.gpu_vocoder:
             return melspectrogram2wav_np(dec, self.config.signal), dec
         with span("infer.assemble"):
@@ -165,6 +194,17 @@ class Inferencer:
         with torch.no_grad():
             wav = melspectrogram2wav(mel, self.config.signal, gl_method=self.gl_method)
         return wav, dec
+
+    def _generate_one(self, mel: np.ndarray) -> np.ndarray:
+        """The generator on one normalized mel (T, n_mels) -> trimmed wav."""
+        with span("infer.assemble"):
+            x = torch.from_numpy(np.asarray(mel, np.float32)).to(self.device)[None]
+        with torch.no_grad(), span("infer.generate"):
+            wav = self.vocoder.generate(x)[0]
+        with span("infer.to_host"):
+            wav = wav.cpu().numpy()
+        wav, _ = trim_silence(wav, top_db=60.0)
+        return wav.astype(np.float32)
 
     def inference_from_path(
         self, source_path: str, target_path: str, output_path: str
@@ -240,7 +280,9 @@ class Inferencer:
         len_bucket: int = 1,
     ):
         """All pairs (src_i, tar_j) in one padded batch through the model
-        and one batched Griffin-Lim call. Returns the wavs row-major
+        and one batched Griffin-Lim call (or one generator call, where the
+        config names HiFi-GAN: then ``gl_iters`` and ``gl_method`` are
+        ignored). Returns the wavs row-major
         (i * n_t + j), or ``(wavs, mels)`` with the denormalized converted
         mels when ``return_mels`` (``inference_one_utterance``'s second
         return).
@@ -287,7 +329,12 @@ class Inferencer:
     ) -> torch.Tensor:
         """The whole chain after the model, on the vocoder's device:
         denormalize, mel -> linear magnitude, Griffin-Lim, de-preemphasis.
-        dec (B, T, n_mels) normalized -> wavs (B, hop*(T-1))."""
+        dec (B, T, n_mels) normalized -> wavs (B, hop*(T-1)). Where the config
+        names HiFi-GAN, the generator on dec as it is, length-masked unless
+        ``uniform``: wavs (B, hop*T)."""
+        if self.vocoder is not None:
+            with span("infer.generate"):
+                return self.vocoder.generate(dec, None if uniform else dec_lens)
         cfg = self.config.signal
         dev = self.vocoder_device
         as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)

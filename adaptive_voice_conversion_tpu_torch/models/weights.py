@@ -8,6 +8,11 @@ parameter tree, as numpy arrays, into that state_dict (conv (K, I, O) ->
 (O, I, K), dense (I, O) -> (O, I)); ``jax_params_from_state_dict`` is its
 inverse. Parameters and spectral-norm vectors cross; optimiser state does
 not.
+
+A HiFi-GAN generator checkpoint (ParallelWaveGAN's layout, models/hifigan.py)
+holds its convolutions weight-normed, as ``weight_g`` / ``weight_v``:
+``load_generator`` folds each pair into the plain ``weight`` the layer
+computes, ``g v / ||v||``, at load.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.config import AEConfig
+from ..core.config import AEConfig, VocoderConfig
 from ..core.device import DeviceLike, resolve_device
 from .ae import AE
+from .hifigan import Generator
 
 
 def _put(sd: dict, name: str, p: dict, w: np.ndarray) -> None:
@@ -140,3 +146,31 @@ def load_checkpoint(path: str, cfg: AEConfig, device: DeviceLike = None) -> AE:
 def save_checkpoint(model: AE, path: str) -> None:
     """Write the model's state_dict as a reference-format ``.ckpt``."""
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+
+
+def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each ``<layer>.weight_g`` / ``<layer>.weight_v`` pair -> ``<layer>.weight``
+    = g v / ||v||, the norm over every dimension but the first (the default
+    ``dim=0`` of ``torch.nn.utils.weight_norm``); other keys pass through."""
+    out = {k: v for k, v in sd.items() if not k.endswith((".weight_g", ".weight_v"))}
+    for k in sd:
+        if k.endswith(".weight_g"):
+            name = k[: -len("_g")]
+            if f"{name}_v" not in sd:
+                raise KeyError(f"{k} has no {name}_v")
+            out[name] = torch._weight_norm(sd[f"{name}_v"], sd[k], 0)
+    return out
+
+
+def load_generator(path: str, cfg: VocoderConfig, device: DeviceLike = None) -> Generator:
+    """A HiFi-GAN generator checkpoint -> a ``Generator`` in eval mode on
+    ``device`` (default ``cuda``). The file is a state_dict, or a
+    ParallelWaveGAN training checkpoint (``{"model": {"generator": ...}}``);
+    weight norm is folded, and the keys must match exactly."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), dict) and "generator" in sd["model"]:
+        sd = sd["model"]["generator"]
+    gen = Generator(cfg)
+    gen.load_state_dict(fold_weight_norm(sd), strict=True)
+    return gen.to(resolve_device(device)).eval()
+

@@ -1,6 +1,7 @@
 """Tracing hooks: a ``torch.profiler`` trace of a code region
-(``profile_trace``), and the program's own spans at its layer boundaries
-(``span``), read back by ``span_seconds``.
+(``profile_trace``), the program's own spans at its layer boundaries
+(``span``), read back by ``span_seconds``, and its counters (``count``),
+read back by ``counter_total``.
 
 A span is on only while a torch profiler records, whatever its activities
 (``profile_trace``, ``cli/train --profile_dir``, ``tools/perf_probes``, any
@@ -17,6 +18,8 @@ host event at any moment names one layer. The names:
                     the cross product, host-to-device copies, length reads
     infer.model     the model's forward in the Inferencer
     infer.vocode    mel to magnitude, Griffin-Lim, de-emphasis
+    infer.generate  the HiFi-GAN generator's dispatch and its length masks
+                    (models/hifigan.py), in place of infer.vocode
     infer.to_host   each copy of a result to the host (the wait included)
     train.sample    a multi-step's draw: seeds, segments, the KL weight
     train.forward   the step's zero_grad through its loss
@@ -26,6 +29,18 @@ host event at any moment names one layer. The names:
                     seed, the copy of the step's scalars, the replay, the
                     copy of its metrics (train/step.py ``StepGraph``); a
                     replayed step emits no other span
+
+A counter, like a span, records only while a torch profiler records, and
+otherwise costs one flag read. Each ``count(name, value)`` appends ``(name,
+ns, value)`` to ``COUNTER_LOG`` on the same clock; a value may be a 0-dim
+device tensor, kept as it is (no synchronisation) and read when summed, or
+a function that computes it, called only while recording.
+The names:
+
+    voc.samples           the generator's valid output samples in a call:
+                          hop x the sum of the rows' frame lengths
+    voc.computed_samples  the samples it computed, padding included:
+                          hop x rows x padded frames
 """
 
 from __future__ import annotations
@@ -101,6 +116,38 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _recorded(name)
+
+
+class CounterLog:
+    """The recorded counts ``(name, ns, value)``, in order, up to ``cap``; the
+    counts that came after the cap are counted in ``dropped``."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.counts: List[Tuple[str, int, object]] = []
+        self.dropped = 0
+
+    def add(self, name: str, ns: int, value) -> None:
+        if len(self.counts) < self.cap:
+            self.counts.append((name, ns, value))
+        else:
+            self.dropped += 1
+
+
+COUNTER_LOG = CounterLog(cap=1_000_000)
+
+
+def count(name: str, value) -> None:
+    """Adds ``value`` (a number or a 0-dim tensor, or a function that returns
+    one, called only then) to the counter ``name`` while a torch profiler
+    records (the module docstring); nothing otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        COUNTER_LOG.add(name, time.time_ns(), value() if callable(value) else value)
+
+
+def counter_total(name: str, t0_ns: int, t1_ns: int) -> float:
+    """The sum of the counts of ``name`` recorded inside [t0_ns, t1_ns]."""
+    return float(sum(float(v) for n, t, v in COUNTER_LOG.counts if n == name and t0_ns <= t <= t1_ns))
 
 
 def span_seconds(name: str, t0_ns: int, t1_ns: int) -> float:

@@ -30,6 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      grid's mels against one-at-a-time conversion and against convert_pairs,
      the ragged fused vocoder's SC against the masked exact one's, and the
      serving times;
+  5b. the HiFi-GAN generator at its published widths after the same model,
+     seeded weights: convert_grid of 4 x 4 mixed lengths against the plain
+     model and the plain generator (reference/hifigan.py) pair by pair,
+     with TF32 off (held) and on (printed); the generator's time at 128
+     rows x 480 frames and a convert_grid call of 8 x 16;
   6. the kernel's times at both shapes, each beside the card's name and
      power limit;
   7. training at the same width (batch 128 x 128 frames x 512 mels): (a)
@@ -148,7 +153,12 @@ import torch
 import yaml
 from scipy.io import wavfile
 
-from adaptive_voice_conversion_tpu_torch.core.config import SignalConfig, config_to_dict, load_config
+from adaptive_voice_conversion_tpu_torch.core.config import (
+    SignalConfig,
+    config_from_dict,
+    config_to_dict,
+    load_config,
+)
 from adaptive_voice_conversion_tpu_torch.data.chunked import ChunkedDeviceStreamer
 from adaptive_voice_conversion_tpu_torch.data.dataset import SegmentDataset, to_bf16_bits
 from adaptive_voice_conversion_tpu_torch.data.device_sampler import (
@@ -177,12 +187,14 @@ from adaptive_voice_conversion_tpu_torch.infer.inferencer import Inferencer, utt
 from adaptive_voice_conversion_tpu_torch.kernels import griffin_lim as gl
 from adaptive_voice_conversion_tpu_torch.kernels._build import build
 from adaptive_voice_conversion_tpu_torch.models.ae import AE, count_params
+from adaptive_voice_conversion_tpu_torch.models.hifigan import Generator
 from adaptive_voice_conversion_tpu_torch.models.masked import ae_inference_masked
 from adaptive_voice_conversion_tpu_torch.models.modules import init_parameters
 from adaptive_voice_conversion_tpu_torch.models.weights import (
     load_checkpoint,
     save_checkpoint,
 )
+from adaptive_voice_conversion_tpu_torch.reference import hifigan as ref_hifigan
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
 from adaptive_voice_conversion_tpu_torch.train.optim import (
     kl_lambda,
@@ -985,6 +997,85 @@ def phase_serving(card: str) -> dict:
             f"{untrimmed_ms:.3f} ms, so the host's trim of {ns * nt} wavs takes "
             f"{grid_ms - untrimmed_ms:.3f} ms ({card})")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the HiFi-GAN generator
+# ---------------------------------------------------------------------------
+
+# the grid of phase 5b: mixed lengths over the benchmark's 120-480 frames
+HIFIGAN_SRC_FRAMES = (480, 311, 120, 397)
+HIFIGAN_TAR_FRAMES = (200, 455, 130, 349)
+# the generator in f32 on the card at two batch shapes, TF32 off, against
+# the plain reference pair by pair (cuDNN picks its algorithms by shape, so
+# the sums differ in order: readings ~1e-6)
+TOL_HIFIGAN_F32 = 1e-4
+
+
+def phase_hifigan(card: str) -> dict:
+    """The HiFi-GAN generator at its published widths (512 channels in,
+    scales 5, 5, 4, 3) after the examples/config.yaml model, seeded weights:
+    convert_grid's masked path against the plain model and the plain
+    generator pair by pair, with TF32 off and on; the generator's time at
+    the benchmark's largest call (128 rows of 480 frames)."""
+    raw = config_to_dict(load_config(str(REPO / "examples" / "config.yaml")))
+    raw["vocoder"] = {"kind": "hifigan"}
+    cfg = config_from_dict(raw)
+    voc = config_to_dict(cfg)["vocoder"]
+    dev = torch.device("cuda")
+    model = AE(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(SEED + 50))
+    gen_params = ref_hifigan.make_params(voc, SEED + 51, dev)
+    gen = Generator(cfg.vocoder)
+    gen.load_state_dict(gen_params, strict=True)
+    rng = np.random.default_rng(SEED + 52)
+    with tempfile.TemporaryDirectory() as tmp:
+        attr_p = Path(tmp) / "attr.pkl"
+        with open(attr_p, "wb") as f:
+            pickle.dump({"mean": (0.45 + 0.1 * rng.random(512)).astype(np.float32),
+                         "std": (0.12 + 0.05 * rng.random(512)).astype(np.float32)}, f)
+        inf = Inferencer(cfg, model, str(attr_p), device=dev, vocoder=gen)
+    mels = [rng.standard_normal((n, 512)).astype(np.float32)
+            for n in HIFIGAN_SRC_FRAMES + HIFIGAN_TAR_FRAMES]
+    srcs, tars = mels[: len(HIFIGAN_SRC_FRAMES)], mels[len(HIFIGAN_SRC_FRAMES):]
+    hop = SIG.hop_length
+    refs = []
+    with torch.no_grad():  # TF32 is off (phase 1)
+        for s_ in srcs:
+            for t_ in tars:
+                dec = model.inference(torch.from_numpy(s_)[None].to(dev), torch.from_numpy(t_)[None].to(dev))
+                refs.append(ref_hifigan.generate(dec[0], gen_params, voc)[: hop * (len(s_) - 1)].cpu().numpy())
+    gaps = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        wavs = inf.convert_grid(srcs, tars, trim=False, len_bucket=32)
+        gaps[tf32] = [float(np.linalg.norm(w - r) / np.linalg.norm(r)) for w, r in zip(wavs, refs)]
+        check(all(w.shape == r.shape for w, r in zip(wavs, refs)), "generator wav lengths differ")
+    check(max(gaps[False]) <= TOL_HIFIGAN_F32,
+          f"convert_grid with the generator vs the plain references, TF32 off: {max(gaps[False])} "
+          f"> {TOL_HIFIGAN_F32}")
+    log(f"[hifigan] {count_params(model)} + {sum(p.numel() for p in gen.parameters())} parameters, "
+        f"seeded; convert_grid {len(srcs)} x {len(tars)} (sources {HIFIGAN_SRC_FRAMES}, targets "
+        f"{HIFIGAN_TAR_FRAMES} frames, len_bucket 32) vs the plain model and generator pair by pair, "
+        f"||w - w_ref|| / ||w_ref||: TF32 off max {max(gaps[False]):.3e} mean {np.mean(gaps[False]):.3e} "
+        f"(tol {TOL_HIFIGAN_F32}); TF32 on max {max(gaps[True]):.3e} mean {np.mean(gaps[True]):.3e}")
+
+    # the generator alone at the benchmark's largest call, TF32 on
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    b, t = 128, 480
+    mel = torch.randn(b, t, 512, device=dev)
+    lengths = torch.tensor(np.linspace(120, 480, b).round().astype(np.int64), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        masked_ms = cuda_ms(lambda: gen.generate(mel, lengths), reps=3)
+        plain_ms = cuda_ms(lambda: gen.generate(mel), reps=3)
+        call_ms = host_ms(lambda: inf.convert_grid(srcs * 2, tars * 4, trim=False, len_bucket=32))
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[time] hifigan generator, {b} rows x {t} frames, TF32: masked {masked_ms:.2f} ms, "
+        f"unmasked {plain_ms:.2f} ms (CUDA events, mean of 3); peak {peak / 1e9:.2f} GB; "
+        f"convert_grid 8 x 16 of the same mels, trim=False: {call_ms:.1f} ms host clock ({card})")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return {"gap_tf32_off": max(gaps[False]), "gap_tf32_on": max(gaps[True]), "masked_ms": masked_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -3044,6 +3135,7 @@ def main() -> None:
     kern = phase_kernel()
     main_path = phase_main_path(card)
     serving = phase_serving(card)
+    phase_hifigan(card)
     times = phase_kernel_times(card)
     training = phase_training(card)
     phase_tensor_parallel(card)

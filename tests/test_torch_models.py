@@ -95,13 +95,18 @@ def to_bct(x):
 
 
 def test_config_loads_field_for_field():
+    def port(cfg):
+        # the port's vocoder section, which the JAX schema lacks, reads
+        # Griffin-Lim where the file has none
+        d = dataclasses.asdict(cfg)
+        assert d.pop("vocoder") == dataclasses.asdict(tcfg.VocoderConfig())
+        return d
+
     j, t = (m.load_config(str(REPO / "examples" / "config.yaml")) for m in (jcfg, tcfg))
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert port(t) == dataclasses.asdict(j)
     assert tcfg.config_from_dict({}) == tcfg.TrainConfig()
     raw = {"Decoder": {"upsample": [2, 2]}, "signal": {"n_iter": 7}, "opt_fused": "bucketed4"}
-    assert dataclasses.asdict(tcfg.config_from_dict(raw)) == dataclasses.asdict(
-        jcfg.config_from_dict(raw)
-    )
+    assert port(tcfg.config_from_dict(raw)) == dataclasses.asdict(jcfg.config_from_dict(raw))
     with pytest.raises(ValueError):
         tcfg.config_from_dict({"chunk_repeats": 0})
 

@@ -31,8 +31,8 @@ from vc_bench import run as bench_run
 from test_torch_masked import N_MELS, SIGNAL, tiny_model_configs
 
 PORT = Path(profiling.__file__).resolve().parents[1]
-NAMES = ("dsp.mel", "dsp.trim", "infer.assemble", "infer.model", "infer.vocode", "infer.to_host",
-         "train.sample", "train.forward", "train.backward", "train.update", "train.replay")
+NAMES = ("dsp.mel", "dsp.trim", "infer.assemble", "infer.model", "infer.vocode", "infer.generate",
+         "infer.to_host", "train.sample", "train.forward", "train.backward", "train.update", "train.replay")
 SEG, BATCH = 16, 4
 
 
@@ -175,7 +175,7 @@ def test_the_paths_emit_their_spans_in_order_flat_and_change_nothing(call, serve
 READERS = {"sample_ms": "train.sample", "forward_ms": "train.forward", "backward_ms": "train.backward",
            "update_ms": "train.update", "mel_ms": "dsp.mel", "trim_ms": "dsp.trim",
            "assemble_ms": "infer.assemble", "model_ms": "infer.model", "vocode_ms": "infer.vocode",
-           "wait_ms": "infer.to_host"}
+           "generator_ms": "infer.generate", "wait_ms": "infer.to_host"}
 
 
 @pytest.mark.parametrize("stem", list(READERS))
