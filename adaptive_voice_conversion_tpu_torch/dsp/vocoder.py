@@ -16,14 +16,14 @@ takes the ``_np`` suffix: ``mel_to_mag_np``, ``griffin_lim_np``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..core.config import SignalConfig
 from ..utils.profiling import span
-from .audio import deemphasis, deemphasis_torch, trim_silence
+from .audio import deemphasis, deemphasis_torch, trim_bounds, trim_silence
 from .mel import mel_to_linear_matrix
 from .stft import (
     istft,
@@ -238,12 +238,26 @@ def melspectrogram2wav(
     gl_method: str = "exact",
 ) -> np.ndarray:
     """Vocoder on the tensor's device: Griffin-Lim and de-preemphasis there,
-    one copy to the host, trim on the host (for a single utterance)."""
+    and, for a single utterance, the trim's bounds (``to_host_trimmed``);
+    one copy to the host."""
     with span("infer.vocode"):
         mag = mel_to_mag(mel_tm, cfg)
         wav = deemphasis_torch(griffin_lim(mag, cfg, method=gl_method), cfg.preemphasis)
+    if wav.ndim == 1:
+        return to_host_trimmed(wav[None], None)[0]
     with span("infer.to_host"):
         wav = wav.cpu().numpy()
-    if wav.ndim == 1:
-        wav, _ = trim_silence(wav, top_db=60.0)
     return wav.astype(np.float32)
+
+
+def to_host_trimmed(wavs: torch.Tensor, valid_lens: Optional[torch.Tensor]) -> List[np.ndarray]:
+    """Served wavs (B, N) on their device, each cropped to ``valid_lens[k]``
+    (whole where None) -> the host's float32 wavs, silence-trimmed at 60 dB
+    as every served wav is: the bounds of every row in one batched pass
+    where the wavs are (``trim_bounds``), one copy of the wavs and the
+    bounds, the host's slices."""
+    bounds = trim_bounds(wavs, valid_lens, top_db=60.0)
+    with span("infer.to_host"):
+        host, bounds = wavs.cpu().numpy(), bounds.tolist()
+    with span("dsp.trim"):
+        return [host[k, s:e].astype(np.float32, copy=False) for k, (s, e) in enumerate(bounds)]

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 import pickle
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,7 @@ import torch
 from ..core.config import TrainConfig
 from ..core.device import DeviceLike, resolve_device, set_precision
 from ..core.mesh import Mesh, all_gather_rows, put_global_from_full
-from ..dsp.audio import deemphasis_torch, save_wav, trim_silence
+from ..dsp.audio import deemphasis_torch, save_wav
 from ..dsp.features import get_spectrograms
 from ..dsp.vocoder import (
     GL_METHODS,
@@ -39,6 +39,7 @@ from ..dsp.vocoder import (
     mel_to_mag,
     melspectrogram2wav,
     melspectrogram2wav_np,
+    to_host_trimmed,
 )
 from ..models.ae import AE
 from ..models.hifigan import Generator
@@ -200,11 +201,8 @@ class Inferencer:
         with span("infer.assemble"):
             x = torch.from_numpy(np.asarray(mel, np.float32)).to(self.device)[None]
         with torch.no_grad(), span("infer.generate"):
-            wav = self.vocoder.generate(x)[0]
-        with span("infer.to_host"):
-            wav = wav.cpu().numpy()
-        wav, _ = trim_silence(wav, top_db=60.0)
-        return wav.astype(np.float32)
+            wav = self.vocoder.generate(x)
+        return to_host_trimmed(wav, None)[0]
 
     def inference_from_path(
         self, source_path: str, target_path: str, output_path: str
@@ -378,10 +376,12 @@ class Inferencer:
         return_mels,
     ):
         """Shared by convert_grid and convert_pairs: the (masked) model, the
-        vocode chain, one copy of the finished wavs to the host, and the
-        crop / trim / mels epilogue there. A pair's wav is cropped to its
-        true source frame count, ``sl_b[k]``. With a mesh the masked model
-        runs whatever the padding (``_serve_on_mesh``)."""
+        vocode chain, one copy of the finished wavs to the host (with their
+        silence bounds, computed where the wavs are, when ``trim``:
+        ``to_host_trimmed``), and the crop / mels epilogue there. A pair's
+        wav is cropped to its true source frame count, ``sl_b[k]``: hop x
+        (sl_b[k] - 1) samples. With a mesh the masked model runs whatever
+        the padding (``_serve_on_mesh``)."""
         gl_method = self.gl_method if gl_method is None else gl_method
         hop = self.config.signal.hop_length
         with span("infer.assemble"):
@@ -400,14 +400,12 @@ class Inferencer:
                     else:
                         dec, dec_lens = ae_inference_masked(self.model, src_b, sl_b, tar_b, tl_b)
                 wavs = self._vocode(dec, dec_lens, gl_method, gl_iters, uniform)
+        if trim:
+            out = to_host_trimmed(wavs, hop * (sl_b.to(wavs.device) - 1))
+        else:
             with span("infer.to_host"):
                 wavs = wavs.cpu().numpy()
-        out: List[np.ndarray] = []
-        for k in range(n):
-            w = wavs[k][: hop * (crop_lens[k] - 1)]
-            if trim:
-                w, _ = trim_silence(w, top_db=60.0)
-            out.append(w.astype(np.float32))
+            out = [wavs[k][: hop * (crop_lens[k] - 1)].astype(np.float32, copy=False) for k in range(n)]
         if not return_mels:
             return out
         with span("infer.to_host"):

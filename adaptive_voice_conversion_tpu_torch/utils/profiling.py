@@ -13,7 +13,9 @@ start ns, end ns)`` on the ``time.time_ns()`` clock, the profiler's own, to
 host event at any moment names one layer. The names:
 
     dsp.mel         dsp/features.py::mel_from_wave: host STFT, mel, dB
-    dsp.trim        dsp/audio.py::trim_silence: every call
+    dsp.trim        dsp/audio.py: every trim_silence call (host numpy), every
+                    trim_bounds call (its dispatch on the wavs' device); the
+                    host's slicing of the served wavs to those bounds
     infer.assemble  the Inferencer's inputs: framing, padding, stacking,
                     the cross product, host-to-device copies, length reads
     infer.model     the model's forward in the Inferencer
@@ -41,6 +43,9 @@ The names:
                           hop x the sum of the rows' frame lengths
     voc.computed_samples  the samples it computed, padding included:
                           hop x rows x padded frames
+    trim.card_rows        the rows whose silence bounds dsp/audio.py
+                          ``trim_bounds`` computed in one batched pass on the
+                          wavs' device (the card on the serving path)
 """
 
 from __future__ import annotations

@@ -180,3 +180,96 @@ def test_melspectrogram2wav_matches_jax(gl_method):
     assert abs(len(ours) - len(ref)) <= 512  # trim works on 512-sample frames
     mag = np.asarray(jvoc.mel_to_mag(m, jcfg)).astype(np.float32)
     assert abs(sc(mag, ours, FULL) - sc(mag, ref, FULL)) < 0.02
+
+
+def speech_rows(lens, width, seed, head=0, tail=0, tail_fill=0.0):
+    """Rows of ``width`` samples: a voiced stretch with a slow envelope in
+    each row's first ``lens[k]`` samples, with ``head`` and ``tail`` samples
+    of near-silence at its ends, and ``tail_fill`` times noise past it."""
+    rng = np.random.default_rng(seed)
+    rows = tail_fill * rng.standard_normal((len(lens), width))
+    for k, n in enumerate(lens):
+        t = np.arange(n) / SR
+        f0 = 110 + 40 * k
+        y = (0.4 * np.sin(2 * np.pi * f0 * t) * (1 + 0.5 * np.sin(2 * np.pi * 2.5 * t))
+             + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t) + 0.01 * rng.standard_normal(n))
+        quiet = 1e-5 * rng.standard_normal(n)
+        voiced = np.zeros(n, bool)
+        voiced[min(head, n):max(n - tail, 0)] = True
+        rows[k, :n] = np.where(voiced, y, quiet)
+    return rows.astype(np.float32)
+
+
+def loud_last_partial_frame():
+    """Its loudest frame is the last one, which the row's end cuts short."""
+    rows = speech_rows([9000, 7433], 9600, 5) * 0.01
+    rows[0, 8900:9000] = 0.9
+    rows[1, 7300:7433] = -0.9
+    return rows, [9000, 7433]
+
+
+def with_a_silent_row():
+    rows = speech_rows([8000, 6500, 9000], 9000, 6, head=2048, tail=1500)
+    rows[1] = 0.0
+    return rows, [8000, 6500, 9000]
+
+
+TRIM_CASES = {
+    "ragged": (lambda: (speech_rows([24000, 23999, 12345, 7000, 4097, 513], 24000, 1),
+                        [24000, 23999, 12345, 7000, 4097, 513]), 60.0),
+    "garbage_past_the_lengths": (lambda: (speech_rows([20000, 15001, 9999], 24000, 2, head=2500,
+                                                      tail=3100, tail_fill=0.8),
+                                          [20000, 15001, 9999]), 60.0),
+    "silent_ends_60db": (lambda: (speech_rows([24000, 17777, 11000], 24000, 3, head=4000, tail=5123),
+                                  [24000, 17777, 11000]), 60.0),
+    "silent_ends_15db": (lambda: (speech_rows([24000, 17777, 11000], 24000, 3, head=4000, tail=5123),
+                                  [24000, 17777, 11000]), 15.0),
+    "an_all_zero_row": (with_a_silent_row, 60.0),
+    "loudest_frame_last_and_partial": (loud_last_partial_frame, 60.0),
+    "one_row": (lambda: (speech_rows([14321], 14321, 4, head=3000, tail=2000), None), 60.0),
+    "no_frame_loud_enough": (lambda: (speech_rows([6000, 5000], 6000, 7), [6000, 5000]), 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(TRIM_CASES))
+def test_card_trim_bounds_equal_the_host_trims(case):
+    """``trim_bounds``, the batched tensor trim the serving path runs on the
+    card, gives each row the (start, end) that the port's host
+    ``trim_silence`` and the JAX package's give the row cropped to its
+    length, exactly."""
+    make, top_db = TRIM_CASES[case]
+    rows, lens = make()
+    lens_t = None if lens is None else torch.tensor(lens)
+    got = audio.trim_bounds(torch.from_numpy(rows), lens_t, top_db)
+    assert got.dtype == torch.int64 and got.shape == (len(rows), 2)
+    for k, row in enumerate(rows):
+        y = row if lens is None else row[: lens[k]]
+        _, host = audio.trim_silence(y, top_db)
+        _, jax_host = jaudio.trim_silence(y, top_db)
+        assert tuple(got[k].tolist()) == host == jax_host, (k, got[k].tolist(), host)
+    if case == "an_all_zero_row":
+        assert got[1].tolist() == [0, lens[1]]
+    if case == "no_frame_loud_enough":
+        assert got.tolist() == [[0, 0], [0, 0]]
+    if case == "silent_ends_60db":
+        assert (got[:, 0] > 0).all() and (got[:, 1] < torch.tensor(lens)).all()
+
+
+def test_card_trim_frame_means_are_numpys_bit_for_bit():
+    """Each frame's mean square sums in numpy's pairwise order, so it equals
+    the host's ``np.mean`` over the same frame bit for bit, not only in the
+    bounds. (The square root after it is the device's own: correctly
+    rounded on the card, within an ulp on this CPU build.)"""
+    rows = speech_rows([24000, 12345], 24000, 8, tail_fill=0.3)
+    n = rows.shape[1]
+    for k, length in enumerate([24000, 12345]):
+        y = torch.from_numpy(rows[k : k + 1]).double()
+        y[:, length:] = 0.0
+        sq = torch.nn.functional.pad(y * y, (1024, (n // 512 + 4) * 512 - 1024 - n))
+        got = audio._pairwise_frame_sums(sq, 2048, 512)[0] / 2048
+        yp = np.pad(rows[k, :length].astype(np.float64), 1024)
+        nf = 1 + (len(yp) - 2048) // 512
+        want = np.mean(yp[np.arange(2048)[None] + 512 * np.arange(nf)[:, None]] ** 2, axis=1)
+        np.testing.assert_array_equal(got[:nf].numpy(), want)
+    with pytest.raises(ValueError):
+        audio.trim_bounds(torch.from_numpy(rows), None, 60.0, frame_length=2048, hop_length=300)

@@ -218,6 +218,7 @@ def test_convert_grid_equals_the_plain_references_pair_by_pair(served, len_bucke
     wavs = inf.convert_grid(srcs, tars, trim=False, len_bucket=len_bucket)
     pairs = inf.convert_pairs([(srcs[0], tars[1]), (srcs[2], tars[0])], trim=False)
     trimmed = inf.convert_grid(srcs, tars, len_bucket=len_bucket)
+    trimmed_pairs = inf.convert_pairs([(srcs[0], tars[1]), (srcs[2], tars[0])])
     hop = SIGNAL["hop_length"]
     for i, s in enumerate(srcs):
         for j, t in enumerate(tars):
@@ -225,8 +226,9 @@ def test_convert_grid_equals_the_plain_references_pair_by_pair(served, len_bucke
             got = wavs[i * len(tars) + j]
             assert got.shape == want.shape and rel(torch.from_numpy(got), torch.from_numpy(want)) <= RTOL
             np.testing.assert_array_equal(trimmed[i * len(tars) + j], trim_silence(got, top_db=60.0)[0])
-    for (i, j), got in zip([(0, 1), (2, 0)], pairs):
+    for (i, j), got, cut in zip([(0, 1), (2, 0)], pairs, trimmed_pairs):
         np.testing.assert_allclose(got, wavs[i * len(tars) + j], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(cut, trim_silence(got, top_db=60.0)[0])
 
 
 def test_a_uniform_grid_runs_unmasked_and_equal(served):
@@ -245,6 +247,9 @@ def test_one_utterance_equals_the_plain_references(served):
     want, _ = trim_silence(plain_pair(raw, params, gen_params, src, tar), top_db=60.0)
     assert wav.dtype == np.float32 and wav.shape == want.shape
     assert rel(torch.from_numpy(wav), torch.from_numpy(want)) <= RTOL
+    with torch.no_grad():  # the same generator call, trimmed on the host
+        whole = inf.vocoder.generate(torch.from_numpy(inf.convert_mel(src, tar))[None])[0].numpy()
+    np.testing.assert_array_equal(wav, trim_silence(whole, top_db=60.0)[0])
     assert dec.shape == (32, N_MELS)  # denormalised, as with Griffin-Lim
 
 
@@ -259,28 +264,34 @@ def test_the_counters_are_silent_without_a_profiler_and_summed_with_one(served, 
         inf.convert_grid(srcs, tars, len_bucket=16)
         inf.convert_grid(srcs, tars)
     names = [n for n, _, _ in log.counts]
-    assert names == ["voc.computed_samples", "voc.samples"] * 2
+    assert names == ["voc.computed_samples", "voc.samples", "trim.card_rows"] * 2
     hop = SIGNAL["hop_length"]
     # sources pad to 32 (16) frames; their decoder lengths are 24 and 16
     valid = 3 * (24 + 16) * hop
     assert profiling.counter_total("voc.samples", 0, 2**63) == 2 * valid
     assert profiling.counter_total("voc.computed_samples", 0, 2**63) == 6 * (32 + 24) * hop
-    t_mid = log.counts[2][1]
+    assert profiling.counter_total("trim.card_rows", 0, 2**63) == 2 * 6  # every pair served
+    t_mid = log.counts[3][1]
     assert profiling.counter_total("voc.samples", 0, t_mid - 1) == valid
+    assert profiling.counter_total("trim.card_rows", 0, t_mid - 1) == 6
 
 
 def test_the_generator_path_emits_its_spans_in_order_and_flat(served, monkeypatch):
     inf = served[0]
     log = profiling.SpanLog(cap=1_000_000)
     monkeypatch.setattr(profiling, "SPAN_LOG", log)
+    counts = profiling.CounterLog(cap=1_000_000)
+    monkeypatch.setattr(profiling, "COUNTER_LOG", counts)
     srcs, tars = mels([21, 13], 11), mels([19, 30], 12)
     with profile(activities=[ProfilerActivity.CPU]):
         inf.convert_grid(srcs, tars)
         inf.inference_one_utterance(srcs[0], tars[0])
     serve = ["infer.assemble", "infer.model", "infer.to_host"]
+    trim = ["dsp.trim", "infer.to_host", "dsp.trim"]  # bounds on the device, one copy, slices
     assert [n for n, _, _ in log.spans] == (
-        ["infer.assemble", "infer.assemble", "infer.model", "infer.generate", "infer.to_host"]
-        + ["dsp.trim"] * 4 + serve + ["infer.assemble", "infer.generate", "infer.to_host", "dsp.trim"])
+        ["infer.assemble", "infer.assemble", "infer.model", "infer.generate"] + trim
+        + serve + ["infer.assemble", "infer.generate"] + trim)
+    assert [v for n, _, v in counts.counts if n == "trim.card_rows"] == [4, 1]
     for (_, _, end), (_, start, _) in zip(log.spans, log.spans[1:]):
         assert start >= end
 

@@ -31,7 +31,8 @@ from adaptive_voice_conversion_tpu.infer.inferencer import Inferencer as JInfere
 from adaptive_voice_conversion_tpu.models.ae import init_ae
 from adaptive_voice_conversion_tpu_torch.cli.convert_grid import main as grid_main
 from adaptive_voice_conversion_tpu_torch.core import config as tcfg
-from adaptive_voice_conversion_tpu_torch.dsp.audio import save_wav
+from adaptive_voice_conversion_tpu_torch.dsp.audio import save_wav, trim_silence
+from adaptive_voice_conversion_tpu_torch.dsp import vocoder as tvoc
 from adaptive_voice_conversion_tpu_torch.dsp.features import get_spectrograms
 from adaptive_voice_conversion_tpu_torch.infer import inferencer as tinf
 from adaptive_voice_conversion_tpu_torch.kernels import griffin_lim as tgl
@@ -221,6 +222,49 @@ def test_convert_grid_fused_and_trim(served, monkeypatch):
     again = fused.convert_grid(srcs, tgts, gl_iters=10)
     for a, b in zip(wavs, again):
         np.testing.assert_array_equal(a, b)
+
+
+def test_trim_on_the_device_equals_the_host_trim(served, monkeypatch):
+    """``convert_grid``, ``convert_pairs`` and the one-shot path with the
+    trim on (bounds computed on the wavs' device, ``trim_bounds``) return,
+    bit for bit, the host's ``trim_silence`` of the same call with the trim
+    off. The mixed-length grid's wavs get silent heads and tails (an
+    envelope after the de-emphasis, other per row), so the bounds cut."""
+    port, _, _ = served
+    real = tinf.deemphasis_torch
+
+    def quiet_ends(y, coef):
+        out = real(y, coef)
+        idx = torch.arange(out.shape[-1])
+        row = torch.arange(out.shape[0])[:, None] if out.ndim == 2 else 0
+        loud = (idx >= 1100 + 300 * row) & (idx < 3000 + 700 * row)
+        return torch.where(loud, out, 1e-6 * out)
+
+    monkeypatch.setattr(tinf, "deemphasis_torch", quiet_ends)
+    monkeypatch.setattr(tvoc, "deemphasis_torch", quiet_ends)
+    rng = np.random.default_rng(19)
+    srcs, tgts = mels_of(rng, (120, 61, 90)), mels_of(rng, (40, 33))
+    whole = port.convert_grid(srcs, tgts, gl_iters=2, trim=False)
+    cut = port.convert_grid(srcs, tgts, gl_iters=2)
+    pairs = [(srcs[1], tgts[0]), (srcs[0], tgts[1]), (srcs[2], tgts[1])]
+    whole_pairs = port.convert_pairs(pairs, gl_iters=2, trim=False)
+    cut_pairs = port.convert_pairs(pairs, gl_iters=2)
+    bounds = []
+    for w, c in zip(whole + whole_pairs, cut + cut_pairs):
+        want, cut_at = trim_silence(w, top_db=60.0)
+        assert c.dtype == np.float32
+        np.testing.assert_array_equal(c, want)
+        bounds.append((cut_at, len(w)))
+    assert any(s > 0 for (s, _), _ in bounds) and any(e < n for (_, e), n in bounds)
+    src, tgt = srcs[0], tgts[1]
+    wav, dec = port.inference_one_utterance(src, tgt)
+    mel = torch.from_numpy(np.asarray(dec, np.float32))
+    with torch.no_grad():
+        y = quiet_ends(tinf.griffin_lim(tinf.mel_to_mag(mel, port.config.signal), port.config.signal),
+                       port.config.signal.preemphasis).numpy()
+    want, (s, e) = trim_silence(y, top_db=60.0)
+    assert s > 0 and e < len(y)
+    np.testing.assert_array_equal(wav, want)
 
 
 def test_serving_refuses_other_frame_sizes(served):

@@ -122,12 +122,14 @@ def train_config():
 
 
 SERVE = ["infer.assemble", "infer.model", "infer.to_host"]
-CALLS = {
+# the served wavs' trim: their bounds on the wavs' device, one copy, the host's slices
+TRIM = ["dsp.trim", "infer.to_host", "dsp.trim"]
+CALLS = {  # the spans a call emits, and the rows it trims on the device
     "one_utterance": (one_utterance, ["dsp.trim", "dsp.mel"] * 2 + SERVE
-                      + ["infer.assemble", "infer.vocode", "infer.to_host", "dsp.trim"]),
-    "grid": (grid, ["infer.assemble", "infer.assemble", "infer.model", "infer.vocode", "infer.to_host"]
-             + ["dsp.trim"] * 6 + ["infer.to_host"]),
-    "train": (train_calls, ["train.sample", "train.forward", "train.backward", "train.update"] * 2),
+                      + ["infer.assemble", "infer.vocode"] + TRIM, 1),
+    "grid": (grid, ["infer.assemble", "infer.assemble", "infer.model", "infer.vocode"] + TRIM
+             + ["infer.to_host"], 6),
+    "train": (train_calls, ["train.sample", "train.forward", "train.backward", "train.update"] * 2, 0),
 }
 
 
@@ -156,14 +158,17 @@ def voiced(n, seed):
 
 
 @pytest.mark.parametrize("call", list(CALLS))
-def test_the_paths_emit_their_spans_in_order_flat_and_change_nothing(call, served, log):
-    fn, expected = CALLS[call]
+def test_the_paths_emit_their_spans_in_order_flat_and_change_nothing(call, served, log, monkeypatch):
+    fn, expected, trimmed_rows = CALLS[call]
+    counts = profiling.CounterLog(cap=1_000_000)
+    monkeypatch.setattr(profiling, "COUNTER_LOG", counts)
     waves, frames = [voiced(4000, 1), voiced(6400, 2)], [21, 34, 13, 40, 27]
     plain = fn(served, waves, frames)
-    assert log.spans == []
+    assert log.spans == [] and counts.counts == []
     with cpu_profile() as prof:
         traced = fn(served, waves, frames)
     assert [n for n, _, _ in log.spans] == expected
+    assert profiling.counter_total("trim.card_rows", 0, 2**63) == trimmed_rows
     assert [n for n, _, _ in host_events(prof)] == expected
     for (_, _, end), (_, start, _) in zip(log.spans, log.spans[1:]):
         assert start >= end  # no span encloses or overlaps the next
