@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from scipy import signal
 from scipy.io import wavfile
 
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 
 
 def load_wav(path: str, sr: int) -> np.ndarray:
@@ -134,7 +134,6 @@ def trim_bounds(
     with span("dsp.trim"):
         b, n = wavs.shape
         dev = wavs.device
-        count("trim.card_rows", b)
         lens = (torch.full((b,), n, dtype=torch.int64, device=dev) if valid_lens is None
                 else valid_lens.to(torch.int64))
         y = wavs.to(torch.float64)

@@ -3,9 +3,14 @@
 Chain: denormalize dB -> amplitude 10^(x*0.05) -> mel->linear regularized
 pseudo-inverse -> 100 iterations of ISTFT/STFT phase projection ->
 de-preemphasis -> trim. ``griffin_lim(method=...)`` selects the exact
-``torch.fft`` loop or the fused CUDA kernel's hybrid schedule
+``torch.fft`` loop or the hybrid schedule around the fused CUDA kernel
 (kernels/griffin_lim.py); the JAX package calls the latter "pallas", and
 both names select it here (``GL_METHODS``).
+
+Every Griffin-Lim schedule lives here: the exact and the hybrid one for
+whole utterances (``griffin_lim``), their ragged-batch counterparts
+(``griffin_lim_masked``), and the kernel's 384-frame segmentation. The
+kernel module holds the kernel alone.
 
 ``melspectrogram2wav`` is the vocoder on tensors. The numpy oracle (complex128
 iterations on the host, a copy of the JAX package's ``melspectrogram2wav``)
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.config import SignalConfig
+from ..kernels.griffin_lim import griffin_lim_phases
 from ..utils.profiling import span
 from .audio import deemphasis, deemphasis_torch, trim_bounds, trim_silence
 from .mel import mel_to_linear_matrix
@@ -39,6 +45,10 @@ from .stft import (
 DEFAULT_SIGNAL = SignalConfig()
 # "pallas" is the JAX package's name for the fused kernel's schedule
 GL_METHODS = ("exact", "fused", "pallas")
+# The hybrid schedules' exact iterations around the kernel: WARM_START from
+# zero phase before it and POLISH after it. The one-utterance schedule also
+# reflect-extends the magnitude by EXT_FRAMES frames a side for the kernel.
+WARM_START, POLISH, EXT_FRAMES = 4, 2, 6
 
 
 def _fused(method: str) -> bool:
@@ -132,10 +142,101 @@ def griffin_lim(
     alias of "fused"."""
     n_iter = cfg.n_iter if n_iter is None else n_iter
     if _fused(method):
-        from ..kernels.griffin_lim import griffin_lim_fused
-
         return griffin_lim_fused(mag, cfg, n_iter=n_iter)
     return _griffin_lim_core(mag, cfg.n_fft, cfg.hop_length, cfg.win_length, n_iter)
+
+
+# Windows of SEG_FRAMES frames overlapping by SEG_OVERLAP, run through the
+# kernel as one stacked batch, then stitched at the midpoints of their
+# overlaps. n_taps = 4 frames is the kernel's coupling radius, so a 32-frame
+# overlap keeps each kept frame > 4 taps away from its window's edge. The
+# JAX package needed the cap for VMEM; it is kept here because it changes
+# the output for T > 384.
+SEG_FRAMES = 384
+SEG_OVERLAP = 32
+
+
+def _segment_starts(t: int) -> list:
+    if t <= SEG_FRAMES:
+        return [0]
+    step = SEG_FRAMES - SEG_OVERLAP
+    starts = list(range(0, t - SEG_FRAMES + step, step))
+    starts[-1] = min(starts[-1], t - SEG_FRAMES)
+    return starts
+
+
+def griffin_lim_phases_segmented(
+    mag: torch.Tensor,
+    cfg: SignalConfig = DEFAULT_SIGNAL,
+    n_iter: int = 100,
+    init_spec: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel phases for any frame count: mag (B, n_freq, T) -> complex
+    (B, n_freq, T) via overlapping SEG_FRAMES windows stacked in one launch.
+    ``init_spec`` seeds every window with the prior global phase estimate."""
+    b, n_freq, t = mag.shape
+    starts = _segment_starts(t)
+    if len(starts) == 1:
+        return griffin_lim_phases(mag, cfg, n_iter=n_iter, init_spec=init_spec)
+    segs = torch.cat([mag[:, :, s : s + SEG_FRAMES] for s in starts], dim=0)
+    init_segs = (
+        None
+        if init_spec is None
+        else torch.cat([init_spec[:, :, s : s + SEG_FRAMES] for s in starts], dim=0)
+    )
+    spec_segs = griffin_lim_phases(segs, cfg, n_iter=n_iter, init_spec=init_segs)
+    parts = []
+    for i, s in enumerate(starts):
+        seg = spec_segs[i * b : (i + 1) * b]
+        lo = 0 if i == 0 else (starts[i - 1] + SEG_FRAMES + s) // 2 - s
+        hi = (
+            SEG_FRAMES
+            if i == len(starts) - 1
+            else (s + SEG_FRAMES + starts[i + 1]) // 2 - s
+        )
+        parts.append(seg[:, :, lo:hi])
+    return torch.cat(parts, dim=-1)
+
+
+def _reflect_frames(x: torch.Tensor, ext: int) -> torch.Tensor:
+    """Torch-style reflect of the frame axis (edge frame not repeated)."""
+    return torch.cat(
+        [x[:, :, 1 : 1 + ext].flip(-1), x, x[:, :, -1 - ext : -1].flip(-1)],
+        dim=-1,
+    )
+
+
+def griffin_lim_fused(
+    mag: torch.Tensor, cfg: SignalConfig = DEFAULT_SIGNAL, n_iter: Optional[int] = None
+) -> torch.Tensor:
+    """Griffin-Lim through the fused kernel; counterpart of the JAX
+    package's ``griffin_lim_pallas`` at its defaults.
+
+    mag: (n_freq, T) or (B, n_freq, T) f32 -> wav (..., hop*(T-1)).
+      1. WARM_START exact iterations from zero phase give every frame
+         (and every segment) one coherent phase estimate;
+      2. the kernel runs the bulk iterations on the magnitude reflect-
+         extended by EXT_FRAMES per side, so the true edges sit inside
+         its exact interior band;
+      3. POLISH exact iterations repair the utterance-boundary and
+         segment-seam perturbations of the kernel's interior band."""
+    n_iter = cfg.n_iter if n_iter is None else n_iter
+    squeeze = mag.dim() == 2
+    if squeeze:
+        mag = mag[None]
+    exact = lambda spec, k: _exact_iterations(
+        mag, spec, cfg.n_fft, cfg.hop_length, cfg.win_length, k
+    )
+    polish = min(POLISH, n_iter)
+    warm = min(WARM_START, n_iter - polish)
+    ext = min(EXT_FRAMES, mag.shape[-1] - 1)
+    warm_spec = _reflect_frames(exact(mag.to(torch.complex64), warm), ext) if warm else None
+    spec = griffin_lim_phases_segmented(
+        _reflect_frames(mag, ext), cfg, n_iter=n_iter - polish - warm, init_spec=warm_spec
+    )
+    spec = exact(spec[:, :, ext : spec.shape[-1] - ext], polish)
+    wav = istft(spec, cfg.n_fft, cfg.hop_length, cfg.win_length).float()
+    return wav[0] if squeeze else wav
 
 
 def _masked_projection(mag: torch.Tensor, frame_lengths: torch.Tensor, cfg: SignalConfig):
@@ -180,8 +281,7 @@ def _griffin_lim_core_masked(
 
 
 def _griffin_lim_core_masked_fast(
-    mag: torch.Tensor, frame_lengths: torch.Tensor, cfg: SignalConfig,
-    n_iter: int, warm_start: int, polish_iters: int,
+    mag: torch.Tensor, frame_lengths: torch.Tensor, cfg: SignalConfig, n_iter: int
 ) -> torch.Tensor:
     """Ragged-batch fast Griffin-Lim: masked exact warm start, the fused
     kernel for the bulk of the iterations, masked exact polish.
@@ -193,11 +293,9 @@ def _griffin_lim_core_masked_fast(
     before and after it (per-sample reflection, masked envelope) supply
     the true edge behaviour.
     """
-    from ..kernels.griffin_lim import griffin_lim_phases_segmented
-
     mag, exact_iteration, synthesize = _masked_projection(mag, frame_lengths, cfg)
-    warm = min(warm_start, n_iter)
-    polish = min(polish_iters, n_iter - warm)
+    warm = min(WARM_START, n_iter)
+    polish = min(POLISH, n_iter - warm)
     X = mag.to(torch.complex64)
     for _ in range(warm):
         X = exact_iteration(X)
@@ -221,15 +319,15 @@ def griffin_lim_masked(
 
     ``method="exact"``: per-sample-exact iterations only (equal to
     ``griffin_lim`` on each sample, see ``_griffin_lim_core_masked``).
-    ``method="fused"`` (or its alias "pallas"): the fused kernel between 4
-    masked exact warm-start iterations and 2 of polish
+    ``method="fused"`` (or its alias "pallas"): the fused kernel between
+    WARM_START masked exact warm-start iterations and POLISH of polish
     (``_griffin_lim_core_masked_fast``), the fast serving mode for
     mixed-length grids.
     """
     n_iter = cfg.n_iter if n_iter is None else n_iter
     lens = torch.as_tensor(frame_lengths, dtype=torch.int64, device=mag.device)
     if _fused(method):
-        return _griffin_lim_core_masked_fast(mag, lens, cfg, n_iter, 4, 2)
+        return _griffin_lim_core_masked_fast(mag, lens, cfg, n_iter)
     return _griffin_lim_core_masked(mag, lens, cfg, n_iter)
 
 

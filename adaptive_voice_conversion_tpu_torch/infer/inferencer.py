@@ -166,8 +166,18 @@ class Inferencer:
     def denormalize(self, x: np.ndarray) -> np.ndarray:
         return x * self.attr["std"] + self.attr["mean"]
 
-    def convert_mel(self, src_mel: np.ndarray, tar_mel: np.ndarray) -> np.ndarray:
-        """Normalized mels (T, n_mels) -> converted normalized mel (T', n_mels)."""
+    def _denormalized(self, dec: torch.Tensor) -> torch.Tensor:
+        """``denormalize`` of the decoder's f32 output on its device, bit for
+        bit and dtype included: the arithmetic runs in numpy's promotion of
+        float32 and the attr's dtype (float32 for the ETL's attr.pkl)."""
+        std, mean = self.attr["std"], self.attr["mean"]
+        dtype = np.result_type(np.float32, std, mean)
+        std, mean = (torch.as_tensor(np.asarray(a, dtype), device=dec.device) for a in (std, mean))
+        return dec.to(std.dtype) * std + mean
+
+    def _convert(self, src_mel: np.ndarray, tar_mel: np.ndarray) -> torch.Tensor:
+        """Normalized mels (T, n_mels) -> the decoder's converted normalized
+        mel (1, T', n_mels) on the device."""
         f = self.config.data_loader.frame_size
         to_dev = lambda m: torch.from_numpy(
             utt_make_frames(np.asarray(m, np.float32), f)
@@ -175,33 +185,39 @@ class Inferencer:
         with span("infer.assemble"):
             src, tar = to_dev(src_mel), to_dev(tar_mel)
         with torch.no_grad(), span("infer.model"):
-            dec = self.model.inference(src, tar)
+            return self.model.inference(src, tar)
+
+    def convert_mel(self, src_mel: np.ndarray, tar_mel: np.ndarray) -> np.ndarray:
+        """Normalized mels (T, n_mels) -> converted normalized mel (T', n_mels)."""
+        dec = self._convert(src_mel, tar_mel)
         with span("infer.to_host"):
             return dec[0].cpu().numpy()
 
     def inference_one_utterance(
         self, src_mel: np.ndarray, tar_mel: np.ndarray
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns (wav, converted denormalized mel). The generator, where
-        the config names it, takes the normalized mel."""
-        norm = self.convert_mel(src_mel, tar_mel)
-        dec = self.denormalize(norm)
+        """Returns (wav, converted denormalized mel). The model's output stays
+        on the device for the vocoder (the generator, where the config names
+        it, takes the normalized mel); the denormalized mel crosses to the
+        host once, after the wav (the numpy oracle vocodes that copy)."""
+        dec = self._convert(src_mel, tar_mel)
+        mel, wav = self._denormalized(dec)[0], None
         if self.vocoder is not None:
-            return self._generate_one(norm), dec
-        if not self.gpu_vocoder:
-            return melspectrogram2wav_np(dec, self.config.signal), dec
-        with span("infer.assemble"):
-            mel = torch.from_numpy(np.asarray(dec, np.float32)).to(self.vocoder_device)
-        with torch.no_grad():
-            wav = melspectrogram2wav(mel, self.config.signal, gl_method=self.gl_method)
-        return wav, dec
+            wav = self._generate_one(dec)
+        elif self.gpu_vocoder:
+            with torch.no_grad():
+                wav = melspectrogram2wav(mel, self.config.signal, gl_method=self.gl_method)
+        with span("infer.to_host"):
+            mel = mel.cpu().numpy()
+        if wav is None:  # gpu_vocoder=False: the numpy oracle on the host's copy
+            wav = melspectrogram2wav_np(mel, self.config.signal)
+        return wav, mel
 
-    def _generate_one(self, mel: np.ndarray) -> np.ndarray:
-        """The generator on one normalized mel (T, n_mels) -> trimmed wav."""
-        with span("infer.assemble"):
-            x = torch.from_numpy(np.asarray(mel, np.float32)).to(self.device)[None]
+    def _generate_one(self, dec: torch.Tensor) -> np.ndarray:
+        """The generator on one normalized mel (1, T, n_mels) on the device
+        -> trimmed wav."""
         with torch.no_grad(), span("infer.generate"):
-            wav = self.vocoder.generate(x)
+            wav = self.vocoder.generate(dec)
         return to_host_trimmed(wav, None)[0]
 
     def inference_from_path(
@@ -335,10 +351,8 @@ class Inferencer:
                 return self.vocoder.generate(dec, None if uniform else dec_lens)
         cfg = self.config.signal
         dev = self.vocoder_device
-        as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         with span("infer.vocode"):
-            mel = dec.to(dev) * as_dev(self.attr["std"]) + as_dev(self.attr["mean"])
-            mag = mel_to_mag(mel, cfg)
+            mag = mel_to_mag(self._denormalized(dec.to(dev)), cfg)
             if uniform:
                 wav = griffin_lim(mag, cfg, n_iter=gl_iters, method=gl_method)
             else:
@@ -408,6 +422,7 @@ class Inferencer:
             out = [wavs[k][: hop * (crop_lens[k] - 1)].astype(np.float32, copy=False) for k in range(n)]
         if not return_mels:
             return out
+        mels = self._denormalized(dec)
         with span("infer.to_host"):
-            dec_host, dl = dec.cpu().numpy(), dec_lens.cpu().numpy()
-        return out, [self.denormalize(dec_host[k, : dl[k]]) for k in range(n)]
+            mels, dl = mels.cpu().numpy(), dec_lens.cpu().numpy()
+        return out, [mels[k, : dl[k]] for k in range(n)]

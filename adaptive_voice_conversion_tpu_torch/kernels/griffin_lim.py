@@ -1,5 +1,5 @@
-"""Fused Griffin-Lim phase iterations: CUDA kernel wrapper, plain version,
-and the hybrid schedule around them.
+"""Fused Griffin-Lim phase iterations: the CUDA kernel's wrapper and its
+plain version.
 
 Replaces the Pallas TPU kernel ``_kernel`` launched by
 ``griffin_lim_phases_pallas`` (adaptive_voice_conversion_tpu/kernels/
@@ -21,9 +21,9 @@ utterance) and frequencies are columns (padded to f_pad = 1152).
   counts its kernel launches.
 - ``griffin_lim_phases_plain`` is the same arithmetic in torch ops, with
   ``.to(torch.bfloat16).float()`` at the kernel's two rounding points.
-- The 384-frame segmentation, the warm start, the reflect extension and
-  the exact polish are ported exactly, so outputs match the JAX package for
-  every length.
+
+The schedules around the kernel (the 384-frame segmentation, the warm
+start, the reflect extension, the exact polish) live in dsp/vocoder.py.
 
 What bounds the kernel on the H100, and its design: see the note at the
 top of csrc/griffin_lim.cu. Three pure functions model what the CUDA file
@@ -45,8 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import SignalConfig
-from ..dsp.stft import hann_window, istft
-from ..dsp.vocoder import _exact_iterations
+from ..dsp.stft import hann_window
 from ._build import load_library
 
 FREQ_PAD = 128  # frequency axis padded to a multiple of this (1025 -> 1152)
@@ -106,37 +105,6 @@ def _gl_constants(n_fft: int, win_length: int, hop_length: int):
 
     n_taps = (s_pad - 1) // hop_length
     return cos_m, sin_m, ck_scale, g_scale, off, n_taps
-
-
-@lru_cache(maxsize=16)
-def _g2d_exact(
-    n_fft: int, win_length: int, hop_length: int, t: int, t_pad: int,
-    s_pad: int, off: int,
-):
-    """Per-(frame, sample) aperiodic 1/wss analysis gain, (t_pad, s_pad) f32:
-    row r is 1 / (the window-sum-square of ``t`` frames) at the samples
-    ``r * hop + off`` onward, 1 where no window reaches; rows past ``t``
-    are 1. Interior rows equal ``_gl_constants``' hop-periodic ``g_scale``;
-    edge rows exceed it (fewer windows overlap there).
-
-    The JAX package's recorded negative result
-    (adaptive_voice_conversion_tpu/kernels/griffin_lim.py:127-157): this
-    gain in place of the periodic one made the spectral convergence worse,
-    since the exact chain reflect-pads the signal before re-analysis and so
-    sees near-interior coverage at the edges. Neither the Pallas kernel nor
-    csrc/griffin_lim.cu takes it; kept with its test as the experiment."""
-    w = hann_window(win_length, n_fft)
-    total = n_fft + hop_length * (t - 1)
-    wss = np.zeros(total + s_pad, dtype=np.float64)
-    for i in range(t):
-        wss[i * hop_length : i * hop_length + n_fft] += w**2
-    tiny = np.finfo(np.float64).tiny
-    inv = np.where(wss > tiny, 1.0 / np.where(wss == 0, 1.0, wss), 1.0)
-    g = np.ones((t_pad, s_pad), dtype=np.float64)
-    for r in range(min(t, t_pad)):
-        q0 = r * hop_length + off
-        g[r] = inv[q0 : q0 + s_pad]
-    return g.astype(np.float32)
 
 
 @dataclass(frozen=True)
@@ -483,144 +451,3 @@ def griffin_lim_phases(
 
 
 griffin_lim_phases.launches = 0
-
-
-def _polish_exact(mag, spec, cfg: SignalConfig, k: int):
-    """k exact Griffin-Lim iterations seeded with the kernel's phases: they
-    repair the utterance-boundary and segment-seam perturbations of the
-    kernel's interior-band approximation."""
-    return _exact_iterations(
-        mag, spec, cfg.n_fft, cfg.hop_length, cfg.win_length, k
-    )
-
-
-# Windows of SEG_FRAMES frames overlapping by SEG_OVERLAP, run through the
-# kernel as one stacked batch, then stitched at the midpoints of their
-# overlaps. n_taps = 4 frames is the kernel's coupling radius, so a 32-frame
-# overlap keeps each kept frame > 4 taps away from its window's edge. The
-# JAX package needed the cap for VMEM; it is kept here because it changes
-# the output for T > 384.
-SEG_FRAMES = 384
-SEG_OVERLAP = 32
-
-
-def _segment_starts(t: int) -> list:
-    if t <= SEG_FRAMES:
-        return [0]
-    step = SEG_FRAMES - SEG_OVERLAP
-    starts = list(range(0, t - SEG_FRAMES + step, step))
-    starts[-1] = min(starts[-1], t - SEG_FRAMES)
-    return starts
-
-
-def griffin_lim_phases_segmented(
-    mag: torch.Tensor,
-    cfg: SignalConfig = SignalConfig(),
-    n_iter: int = 100,
-    init_spec: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Kernel phases for any frame count: mag (B, n_freq, T) -> complex
-    (B, n_freq, T) via overlapping SEG_FRAMES windows stacked in one launch.
-    ``init_spec`` seeds every window with the prior global phase estimate."""
-    b, n_freq, t = mag.shape
-    starts = _segment_starts(t)
-    if len(starts) == 1:
-        return griffin_lim_phases(mag, cfg, n_iter=n_iter, init_spec=init_spec)
-    segs = torch.cat([mag[:, :, s : s + SEG_FRAMES] for s in starts], dim=0)
-    init_segs = (
-        None
-        if init_spec is None
-        else torch.cat([init_spec[:, :, s : s + SEG_FRAMES] for s in starts], dim=0)
-    )
-    spec_segs = griffin_lim_phases(segs, cfg, n_iter=n_iter, init_spec=init_segs)
-    parts = []
-    for i, s in enumerate(starts):
-        seg = spec_segs[i * b : (i + 1) * b]
-        lo = 0 if i == 0 else (starts[i - 1] + SEG_FRAMES + s) // 2 - s
-        hi = (
-            SEG_FRAMES
-            if i == len(starts) - 1
-            else (s + SEG_FRAMES + starts[i + 1]) // 2 - s
-        )
-        parts.append(seg[:, :, lo:hi])
-    return torch.cat(parts, dim=-1)
-
-
-def _reflect_frames(x: torch.Tensor, ext: int) -> torch.Tensor:
-    """Torch-style reflect of the frame axis (edge frame not repeated)."""
-    return torch.cat(
-        [x[:, :, 1 : 1 + ext].flip(-1), x, x[:, :, -1 - ext : -1].flip(-1)],
-        dim=-1,
-    )
-
-
-def griffin_lim_fused(
-    mag: torch.Tensor,
-    cfg: SignalConfig = SignalConfig(),
-    n_iter: Optional[int] = None,
-    polish_iters: int = 2,
-    schedule: str = "end",
-    ext_frames: int = 6,
-    warm_start: int = 4,
-) -> torch.Tensor:
-    """Griffin-Lim through the fused kernel; counterpart of the JAX
-    package's ``griffin_lim_pallas``.
-
-    mag: (n_freq, T) or (B, n_freq, T) f32 -> wav (..., hop*(T-1)).
-      1. ``warm_start`` exact iterations from zero phase give every frame
-         (and every segment) one coherent phase estimate;
-      2. the kernel runs the bulk iterations on the magnitude reflect-
-         extended by ``ext_frames`` per side, so the true edges sit inside
-         its exact interior band;
-      3. ``polish_iters`` exact iterations repair the boundary perturbation.
-    ``schedule``: "end" (default) or "interleaved" (kernel runs split
-    between single exact iterations)."""
-    if schedule not in ("end", "interleaved"):
-        raise ValueError(f"schedule={schedule!r}: expected 'end' or 'interleaved'")
-    n_iter = cfg.n_iter if n_iter is None else n_iter
-    polish = min(polish_iters, n_iter)
-    squeeze = mag.dim() == 2
-    if squeeze:
-        mag = mag[None]
-    warm = min(warm_start, n_iter - polish)
-    warm_spec = (
-        _polish_exact(mag, mag.to(torch.complex64), cfg, warm) if warm else None
-    )
-    ext = min(ext_frames, mag.shape[-1] - 1)
-    mag_k = _reflect_frames(mag, ext) if ext else mag
-
-    def _crop(spec_e):
-        return spec_e[:, :, ext : spec_e.shape[-1] - ext] if ext else spec_e
-
-    def _ext_spec(sp):
-        if sp is None or not ext:
-            return sp
-        return _reflect_frames(sp, ext)
-
-    if polish == 0:
-        spec = _crop(griffin_lim_phases_segmented(
-            mag_k, cfg, n_iter=n_iter - warm, init_spec=_ext_spec(warm_spec),
-        ))
-    elif schedule == "end":
-        spec = _crop(griffin_lim_phases_segmented(
-            mag_k, cfg, n_iter=n_iter - polish - warm,
-            init_spec=_ext_spec(warm_spec),
-        ))
-        spec = _polish_exact(mag, spec, cfg, polish)
-    else:
-        kern_total = n_iter - polish
-        base = kern_total // polish
-        rem = kern_total - base * polish
-        spec = None
-        for j in range(polish):
-            k = base + (rem if j == 0 else 0)
-            if k > 0:
-                spec = _crop(griffin_lim_phases_segmented(
-                    mag_k, cfg, n_iter=k, init_spec=_ext_spec(spec),
-                ))
-            spec = _polish_exact(
-                mag, spec if spec is not None else mag.to(torch.complex64),
-                cfg, 1,
-            )
-    wav = istft(spec, cfg.n_fft, cfg.hop_length, cfg.win_length).float()
-    return wav[0] if squeeze else wav

@@ -16,6 +16,9 @@ length at that stage). The convolutions pad with zeros, so each row then
 computes what it computes alone at its true length, and its wav is zero
 past hop x its length. This is the guarantee models/masked.py gives the
 AdaIN model, for the ragged batches of ``Inferencer.convert_grid``.
+
+Its plain reference, which the tests hold it against, is the benchmark's
+``vc_bench/reference/hifigan.py``.
 """
 
 from __future__ import annotations

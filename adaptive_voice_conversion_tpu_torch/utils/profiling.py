@@ -43,9 +43,6 @@ The names:
                           hop x the sum of the rows' frame lengths
     voc.computed_samples  the samples it computed, padding included:
                           hop x rows x padded frames
-    trim.card_rows        the rows whose silence bounds dsp/audio.py
-                          ``trim_bounds`` computed in one batched pass on the
-                          wavs' device (the card on the serving path)
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      serving times;
   5b. the HiFi-GAN generator at its published widths after the same model,
      seeded weights: convert_grid of 4 x 4 mixed lengths against the plain
-     model and the plain generator (reference/hifigan.py) pair by pair,
+     model and the plain generator (vc_bench/reference/hifigan.py) pair by pair,
      with TF32 off (held) and on (printed); the generator's time at 128
      rows x 480 frames and a convert_grid call of 8 x 16;
   6. the kernel's times at both shapes, each beside the card's name and
@@ -178,6 +178,8 @@ from adaptive_voice_conversion_tpu_torch.dsp.stft import (
     stft_np,
 )
 from adaptive_voice_conversion_tpu_torch.dsp.vocoder import (
+    SEG_FRAMES,
+    _segment_starts,
     griffin_lim,
     griffin_lim_masked,
     mel_to_mag,
@@ -194,7 +196,6 @@ from adaptive_voice_conversion_tpu_torch.models.weights import (
     load_checkpoint,
     save_checkpoint,
 )
-from adaptive_voice_conversion_tpu_torch.reference import hifigan as ref_hifigan
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
 from adaptive_voice_conversion_tpu_torch.train.optim import (
     kl_lambda,
@@ -206,6 +207,7 @@ from adaptive_voice_conversion_tpu_torch.train.step import (
     make_train_step,
     step_seed,
 )
+from vc_bench.reference import hifigan as ref_hifigan
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -355,7 +357,7 @@ def _sc(mag: np.ndarray, wav: np.ndarray) -> float:
 def _stack_segments(spec: np.ndarray) -> np.ndarray:
     """(n_freq, T) -> (n_seg, n_freq, SEG_FRAMES), as the segmented path
     stacks them for one launch."""
-    return np.stack([spec[:, s : s + gl.SEG_FRAMES] for s in gl._segment_starts(spec.shape[1])])
+    return np.stack([spec[:, s : s + SEG_FRAMES] for s in _segment_starts(spec.shape[1])])
 
 
 def ragged_grid_spec() -> np.ndarray:

@@ -1,6 +1,6 @@
 """The port's recorded experiments against the JAX package's, on the CPU:
-the concat-free and the dual conv bank, the encoders' ``bank_out``, the
-aperiodic Griffin-Lim gain, and the flat / bucketed optimiser
+the concat-free and the dual conv bank, the encoders' ``bank_out``, and
+the flat / bucketed optimiser
 (``opt_fused``), the last also in the Solver and over a model axis.
 
 Tolerances, each the JAX package's own test's:
@@ -13,8 +13,6 @@ Tolerances, each the JAX package's own test's:
   order), as the JAX test holds its own;
 - ``bank_out`` from ``dual_conv_bank`` against the encoders' own bank:
   atol 1e-6 (tests/test_ops.py:212-245);
-- ``_g2d_exact`` equal to the JAX array, with the JAX test's assertions
-  (tests/test_kernels.py:165-186);
 - every ``opt_fused`` mode against JAX ``make_optimizer(fused=mode)``
   after the first and the second update: the parameters at rtol 1e-5,
   atol 1e-7 (tests/test_train.py:202-252), the update itself within one
@@ -37,15 +35,12 @@ import pytest
 import torch
 
 from adaptive_voice_conversion_tpu.core import config as jcfg
-from adaptive_voice_conversion_tpu.core.config import SignalConfig
-from adaptive_voice_conversion_tpu.kernels.griffin_lim import _g2d_exact as j_g2d_exact
 from adaptive_voice_conversion_tpu.models import init_ae
 from adaptive_voice_conversion_tpu.ops import conv_bank_in as j_conv_bank_in
 from adaptive_voice_conversion_tpu.ops.conv import dual_conv_bank as j_dual_conv_bank
 from adaptive_voice_conversion_tpu.train import make_optimizer as j_make_optimizer
 from adaptive_voice_conversion_tpu.train.optim import bucketed_flatten
 from adaptive_voice_conversion_tpu_torch.core import config as tcfg
-from adaptive_voice_conversion_tpu_torch.kernels.griffin_lim import _g2d_exact, _gl_constants
 from adaptive_voice_conversion_tpu_torch.models.ae import AE
 from adaptive_voice_conversion_tpu_torch.models.modules import init_parameters
 from adaptive_voice_conversion_tpu_torch.ops import conv1d, conv_bank, conv_bank_in
@@ -174,22 +169,6 @@ def test_bank_out_from_dual_bank_equals_the_encoders_own_bank():
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
         # the given bank is what the encoder uses: another one changes it
         assert not torch.equal(spk(x, bank_out=out_s * 2), spk(x))
-
-
-# -- the aperiodic gain ---------------------------------------------------------
-
-
-def test_g2d_exact_equals_jax_and_its_recorded_assertions():
-    cfg = SignalConfig()
-    _, _, _, g_per, off, _ = _gl_constants(cfg.n_fft, cfg.win_length, cfg.hop_length)
-    t = 64
-    args = (cfg.n_fft, cfg.win_length, cfg.hop_length, t, 128, g_per.shape[0], off)
-    g2d = _g2d_exact(*args)
-    np.testing.assert_array_equal(g2d, np.asarray(j_g2d_exact(*args)))
-    assert g2d.shape == (128, g_per.shape[0]) and g2d.dtype == np.float32
-    np.testing.assert_allclose(g2d[t // 2], g_per, rtol=1e-5)
-    assert float(g2d[0].max()) > float(g_per.max())
-    assert (g2d[t:] == 1.0).all()  # rows past the frames
 
 
 # -- the flat and bucketed optimiser ---------------------------------------------

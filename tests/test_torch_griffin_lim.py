@@ -1,6 +1,7 @@
-"""The fused Griffin-Lim kernel's plain version and the hybrid schedule
-(adaptive_voice_conversion_tpu_torch.kernels.griffin_lim) against the JAX
-package's Pallas kernel, run in interpret mode on the CPU.
+"""The fused Griffin-Lim kernel's plain version
+(adaptive_voice_conversion_tpu_torch.kernels.griffin_lim) and the hybrid
+schedule around it (adaptive_voice_conversion_tpu_torch.dsp.vocoder) against
+the JAX package's Pallas kernel, run in interpret mode on the CPU.
 
 Tolerances, and why they differ by iteration count:
 - one iteration seeded with the signal's own STFT phases: every bin
@@ -24,6 +25,10 @@ The CUDA kernel itself runs only on the card: tests/test_torch_kernels_cuda.py
 version there.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +39,7 @@ from adaptive_voice_conversion_tpu.dsp.stft import stft_np
 from adaptive_voice_conversion_tpu.dsp.vocoder import griffin_lim_jax
 from adaptive_voice_conversion_tpu.kernels import griffin_lim as jgl
 from adaptive_voice_conversion_tpu_torch.core.config import SignalConfig
+from adaptive_voice_conversion_tpu_torch.dsp import vocoder as tvoc
 from adaptive_voice_conversion_tpu_torch.dsp.vocoder import griffin_lim
 from adaptive_voice_conversion_tpu_torch.kernels import griffin_lim as tgl
 
@@ -70,9 +76,23 @@ def test_constants_and_segments_match_jax():
     for a, b in zip(ours[:4], ref[:4]):
         np.testing.assert_array_equal(a, b)
     assert ours[4:] == ref[4:] and ours[5] == 4
-    assert (tgl.SEG_FRAMES, tgl.SEG_OVERLAP) == (jgl.SEG_FRAMES, jgl.SEG_OVERLAP)
+    assert (tvoc.SEG_FRAMES, tvoc.SEG_OVERLAP) == (jgl.SEG_FRAMES, jgl.SEG_OVERLAP)
     for t in (10, 384, 385, 500, 737, 768, 2000):
-        assert tgl._segment_starts(t) == jgl._segment_starts(t)
+        assert tvoc._segment_starts(t) == jgl._segment_starts(t)
+
+
+def test_kernel_module_imports_no_schedule():
+    """The vocoder's layers point one way (dsp/vocoder.py -> the kernel
+    module -> dsp/stft.py): importing the kernel module loads none of the
+    port but the config, the STFT module and the kernels' build helper."""
+    pkg = "adaptive_voice_conversion_tpu_torch"
+    code = (f"import sys, {pkg}.kernels.griffin_lim; "
+            f"print(' '.join(sorted(m for m in sys.modules if m.split('.')[0] == '{pkg}')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, check=True).stdout.split()
+    assert f"{pkg}.dsp.vocoder" not in out
+    assert out == [pkg] + [f"{pkg}.{m}" for m in (
+        "core", "core.config", "dsp", "dsp.stft", "kernels", "kernels._build", "kernels.griffin_lim")]
 
 
 U32 = 2.0**-24  # unit roundoff of f32
@@ -188,19 +208,16 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize(
-    "n_frames,n_iter,kw",
+    "n_frames,n_iter",
     [
-        (57, 30, {}),
-        (424, 8, {}),  # > 384 frames: two stacked segments, stitched
-        (57, 12, dict(warm_start=2, polish_iters=2, ext_frames=4)),
-        (57, 12, dict(warm_start=0, polish_iters=3, schedule="interleaved")),
-        (57, 12, dict(warm_start=0, polish_iters=0, ext_frames=0)),
+        (57, 30),
+        (424, 8),  # > 384 frames: two stacked segments, stitched
     ],
 )
-def test_fused_hybrid_matches_pallas_hybrid(n_frames, n_iter, kw):
+def test_fused_hybrid_matches_pallas_hybrid(n_frames, n_iter):
     mag = np.abs(spec_frames(n_frames)).astype(np.float32)
-    ref = np.asarray(jgl.griffin_lim_pallas(jnp.asarray(mag), JCFG, n_iter=n_iter, interpret=True, **kw))
-    ours = tgl.griffin_lim_fused(torch.from_numpy(mag), CFG, n_iter=n_iter, **kw).numpy()
+    ref = np.asarray(jgl.griffin_lim_pallas(jnp.asarray(mag), JCFG, n_iter=n_iter, interpret=True))
+    ours = tvoc.griffin_lim_fused(torch.from_numpy(mag), CFG, n_iter=n_iter).numpy()
     assert ours.shape == ref.shape == (CFG.hop_length * (n_frames - 1),)
     assert np.isfinite(ours).all()
     sc_t, sc_j = sc(mag, ours), sc(mag, ref)

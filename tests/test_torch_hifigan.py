@@ -1,6 +1,6 @@
 """The HiFi-GAN generator (models/hifigan.py) as the port's second vocoder,
 on the CPU at tiny widths: against its plain reference
-(reference/hifigan.py), a ragged batch against each row alone, weight-norm
+(vc_bench/reference/hifigan.py), a ragged batch against each row alone, weight-norm
 folding and the checkpoint's key layout, the Inferencer's batched and
 one-shot paths and both CLIs against the plain AdaIN model followed by the
 plain generator, the counters, and the Griffin-Lim default.
@@ -32,8 +32,8 @@ from adaptive_voice_conversion_tpu_torch.models.weights import (
     load_generator,
     save_checkpoint,
 )
-from adaptive_voice_conversion_tpu_torch.reference import hifigan as ref
 from adaptive_voice_conversion_tpu_torch.utils import profiling
+from vc_bench.reference import hifigan as ref
 from vc_bench.reference.model import Net, make_params
 from vc_bench.tests.tiny import tiny_config
 
@@ -156,11 +156,6 @@ def test_the_key_layout_is_parallelwavegans():
     assert shapes == dict(ref.param_shapes(voc_dict(gen.cfg)))
 
 
-def test_the_reference_is_the_benchmarks_copy():
-    ours = (REPO / "adaptive_voice_conversion_tpu_torch" / "reference" / "hifigan.py").read_text()
-    assert ours == (REPO / "vc_bench" / "reference" / "hifigan.py").read_text()
-
-
 # -- the Inferencer ---------------------------------------------------------
 
 N_MELS = 16
@@ -258,22 +253,23 @@ def test_the_counters_are_silent_without_a_profiler_and_summed_with_one(served, 
     log = profiling.CounterLog(cap=1_000_000)
     monkeypatch.setattr(profiling, "COUNTER_LOG", log)
     srcs, tars = mels([21, 13], 7), mels([19, 30, 9], 8)
-    inf.convert_grid(srcs, tars, len_bucket=16)
+    whole = [inf.convert_grid(srcs, tars, len_bucket=16, trim=False), inf.convert_grid(srcs, tars, trim=False)]
     assert log.counts == []
     with profile(activities=[ProfilerActivity.CPU]):
-        inf.convert_grid(srcs, tars, len_bucket=16)
-        inf.convert_grid(srcs, tars)
+        served = [inf.convert_grid(srcs, tars, len_bucket=16), inf.convert_grid(srcs, tars)]
     names = [n for n, _, _ in log.counts]
-    assert names == ["voc.computed_samples", "voc.samples", "trim.card_rows"] * 2
+    assert names == ["voc.computed_samples", "voc.samples"] * 2
     hop = SIGNAL["hop_length"]
     # sources pad to 32 (16) frames; their decoder lengths are 24 and 16
     valid = 3 * (24 + 16) * hop
     assert profiling.counter_total("voc.samples", 0, 2**63) == 2 * valid
     assert profiling.counter_total("voc.computed_samples", 0, 2**63) == 6 * (32 + 24) * hop
-    assert profiling.counter_total("trim.card_rows", 0, 2**63) == 2 * 6  # every pair served
-    t_mid = log.counts[3][1]
+    t_mid = log.counts[2][1]
     assert profiling.counter_total("voc.samples", 0, t_mid - 1) == valid
-    assert profiling.counter_total("trim.card_rows", 0, t_mid - 1) == 6
+    for wavs, cut in zip(whole, served):  # every pair served, trimmed
+        assert len(cut) == len(wavs) == 6
+        for w, c in zip(wavs, cut):
+            np.testing.assert_array_equal(c, trim_silence(w, top_db=60.0)[0])
 
 
 def test_the_generator_path_emits_its_spans_in_order_and_flat(served, monkeypatch):
@@ -283,15 +279,18 @@ def test_the_generator_path_emits_its_spans_in_order_and_flat(served, monkeypatc
     counts = profiling.CounterLog(cap=1_000_000)
     monkeypatch.setattr(profiling, "COUNTER_LOG", counts)
     srcs, tars = mels([21, 13], 11), mels([19, 30], 12)
+    plain = [inf.convert_grid(srcs, tars), inf.inference_one_utterance(srcs[0], tars[0])[0]]
     with profile(activities=[ProfilerActivity.CPU]):
-        inf.convert_grid(srcs, tars)
-        inf.inference_one_utterance(srcs[0], tars[0])
-    serve = ["infer.assemble", "infer.model", "infer.to_host"]
+        traced = [inf.convert_grid(srcs, tars), inf.inference_one_utterance(srcs[0], tars[0])[0]]
     trim = ["dsp.trim", "infer.to_host", "dsp.trim"]  # bounds on the device, one copy, slices
+    # the one-shot path: the model's output stays on the device for the
+    # generator; the denormalised mel crosses last
     assert [n for n, _, _ in log.spans] == (
         ["infer.assemble", "infer.assemble", "infer.model", "infer.generate"] + trim
-        + serve + ["infer.assemble", "infer.generate"] + trim)
-    assert [v for n, _, v in counts.counts if n == "trim.card_rows"] == [4, 1]
+        + ["infer.assemble", "infer.model", "infer.generate"] + trim + ["infer.to_host"])
+    assert [n for n, _, _ in counts.counts] == ["voc.computed_samples", "voc.samples"] * 2
+    for a, b in zip(plain[0] + plain[1:], traced[0] + traced[1:]):  # 4 trimmed pairs, 1 one-shot
+        np.testing.assert_array_equal(a, b)
     for (_, _, end), (_, start, _) in zip(log.spans, log.spans[1:]):
         assert start >= end
 

@@ -209,7 +209,7 @@ def test_convert_grid_fused_and_trim(served, monkeypatch):
         return real(mag, *a, **k)
 
     before = real.launches
-    monkeypatch.setattr(tgl, "griffin_lim_phases", spy)
+    monkeypatch.setattr(tvoc, "griffin_lim_phases", spy)  # the name the schedules call
     wavs = port.convert_grid(srcs, tgts, gl_iters=10, gl_method="fused")
     monkeypatch.undo()
     assert calls == [(6, SIGNAL["n_fft"] // 2 + 1, 40)]  # one call, all six pairs
@@ -265,6 +265,55 @@ def test_trim_on_the_device_equals_the_host_trim(served, monkeypatch):
     want, (s, e) = trim_silence(y, top_db=60.0)
     assert s > 0 and e < len(y)
     np.testing.assert_array_equal(wav, want)
+
+
+@pytest.mark.parametrize("gl_method", ["exact", "fused"])
+@pytest.mark.parametrize("attr_dtype", [np.float32, np.float64])
+def test_one_shot_vocodes_from_the_card(served, tmp_path, monkeypatch, attr_dtype, gl_method):
+    """``inference_one_utterance`` returns, bit for bit and dtype included,
+    what the chain through the host computes: ``convert_mel``, the host's
+    ``denormalize`` (float64 for a float64 attr.pkl), ``melspectrogram2wav``
+    on the float32 copy of that mel made on the host. The decoder's output
+    stays on its device for the vocoder: no mel becomes a tensor from the
+    host after the model has run."""
+    port, _, _ = served
+    rng = np.random.default_rng(23)
+    attr = {"mean": rng.standard_normal(N_MELS).astype(attr_dtype),
+            "std": (1.0 + rng.random(N_MELS)).astype(attr_dtype)}
+    path = tmp_path / "attr.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(attr, fh)
+    cfg = dataclasses.replace(port.config, signal=dataclasses.replace(port.config.signal, n_iter=8))
+    inf = tinf.Inferencer(cfg, port.model, str(path), gl_method=gl_method, device="cpu")
+    src, tar = mels_of(rng, (37, 26))
+    want_mel = inf.denormalize(inf.convert_mel(src, tar))
+    with torch.no_grad():
+        mel = torch.from_numpy(np.asarray(want_mel, np.float32))
+        want_wav = tinf.melspectrogram2wav(mel, cfg.signal, gl_method=gl_method)
+
+    ran, made, real = [], [], torch.from_numpy
+
+    class Marked:  # the model, marking that it has run
+        def inference(self, *a):
+            out = port.model.inference(*a)
+            ran.append(out.shape)
+            return out
+
+    def from_numpy(a):
+        if ran:
+            made.append(a.shape)
+        return real(a)
+
+    inf.model = Marked()
+    monkeypatch.setattr(torch, "from_numpy", from_numpy)
+    wav, mel = inf.inference_one_utterance(src, tar)
+    monkeypatch.undo()
+    assert ran == [(1,) + want_mel.shape]
+    assert want_mel.shape not in made, made
+    assert mel.dtype == want_mel.dtype == np.result_type(np.float32, attr_dtype)
+    np.testing.assert_array_equal(mel, want_mel)
+    assert wav.dtype == want_wav.dtype == np.float32
+    np.testing.assert_array_equal(wav, want_wav)
 
 
 def test_serving_refuses_other_frame_sizes(served):
