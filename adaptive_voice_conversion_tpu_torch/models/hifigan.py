@@ -17,6 +17,12 @@ computes what it computes alone at its true length, and its wav is zero
 past hop x its length. This is the guarantee models/masked.py gives the
 AdaIN model, for the ragged batches of ``Inferencer.convert_grid``.
 
+On the CPU the masks, LeakyReLUs and sums between the convolutions are
+PyTorch's elementwise ops. On a CUDA tensor each junction between two
+convolutions is one launch of the kernel in kernels/hifigan.py, which also
+adds the convolution's bias (``_run_fused``), with the same arithmetic, so
+the wavs are the same bit for bit.
+
 Its plain reference, which the tests hold it against, is the benchmark's
 ``vc_bench/reference/hifigan.py``.
 """
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import VocoderConfig
+from ..kernels.hifigan import J0, J1, J2, J3, apply_mask, junction, length_mask
 from ..utils.profiling import count
 
 # the slope of the LeakyReLU before the output convolution (PyTorch's
@@ -61,14 +68,37 @@ class ResidualBlock(nn.Module):
         """The block on x, which is zero past each row's length under
         ``mask`` (None: no padding), keeping it so."""
         for c1, c2 in zip(self.convs1, self.convs2):
-            t = _mask(c1[1](F.leaky_relu(x, self.slope)), mask)
-            t = _mask(c2[1](F.leaky_relu(t, self.slope, inplace=True)), mask)
+            t = apply_mask(c1[1](F.leaky_relu(x, self.slope)), mask)
+            t = apply_mask(c2[1](F.leaky_relu(t, self.slope, inplace=True)), mask)
             x = t.add_(x)
         return x
 
+    def fused(self, x, a, lengths, scale, total, block, n_blocks, next_slope):
+        """``masked`` through the junction kernel, on the stage's input x and
+        its LeakyReLU a, the block's output folded into the stage's ``total``
+        (kernels/hifigan.py ``J3``)."""
+        last = len(self.convs1) - 1
+        for k, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
+            c = _unbiased(c1[1], a)
+            del a  # dead once read: the stage keeps its own reference
+            c = _unbiased(c2[1], junction(J1, c, c1[1].bias, lengths, scale, self.slope))
+            if k < last:
+                x, a = junction(J2, c, c2[1].bias, lengths, scale, self.slope, x=x)
+        return junction(J3, c, c2[1].bias, lengths, scale, next_slope, x=x, total=total, block=block,
+                        n_blocks=n_blocks)
 
-def _mask(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    return x if mask is None else x.mul_(mask)
+
+def _unbiased(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` without the bias, which the junction after it adds:
+    cuDNN sees the call it sees with the bias, which PyTorch adds to its
+    output in a pass of its own. The module's forward pre-hooks run first, as
+    in a call: ``torch.nn.utils.weight_norm``'s computes the weight there."""
+    for hook in conv._forward_pre_hooks.values():
+        hook(conv, (x,))
+    if isinstance(conv, nn.ConvTranspose1d):
+        return F.conv_transpose1d(x, conv.weight, None, conv.stride, conv.padding, conv.output_padding,
+                                  conv.groups, conv.dilation)
+    return F.conv1d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
 class Generator(nn.Module):
@@ -78,6 +108,10 @@ class Generator(nn.Module):
         self.cfg = cfg
         self.hop = math.prod(cfg.upsample_scales)
         self.n_blocks = len(cfg.resblock_kernel_sizes)
+        # the launches between two convolutions on the fused path: after
+        # input_conv, and in each stage after the upsample and each convolution
+        # of its blocks
+        self.junctions = 1 + len(cfg.upsample_scales) * (1 + 2 * sum(map(len, cfg.resblock_dilations)))
         self.input_conv = nn.Conv1d(cfg.in_channels, c, k, padding=_same(k))
         self.upsamples = nn.ModuleList()
         self.blocks = nn.ModuleList()
@@ -101,38 +135,63 @@ class Generator(nn.Module):
         ``lengths`` ((B,) frames, on the mels' device) the forward is
         length-masked (the module docstring): row b equals the generator on
         its first ``lengths[b]`` frames alone, and is zero after them.
-        Counts ``voc.samples`` and ``voc.computed_samples``
-        (utils/profiling.py) while a profiler records."""
+        Counts ``voc.samples``, ``voc.computed_samples``, ``voc.junctions``
+        and ``voc.fused_junctions`` (the junction kernel's launches in the
+        call: 0 on the CPU) (utils/profiling.py) while a profiler records."""
         b, t, _ = mel.shape
         computed = b * t * self.hop
         count("voc.computed_samples", computed)
         count("voc.samples", computed if lengths is None else (lambda: lengths.sum() * self.hop))
-        return self._run(mel.transpose(1, 2), lengths)[:, 0]
+        launches = junction.launches
+        wav = self._run(mel.transpose(1, 2), lengths)[:, 0]
+        count("voc.junctions", self.junctions)
+        count("voc.fused_junctions", junction.launches - launches)
+        return wav
 
     def _run(self, x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        return (self._run_fused if x.is_cuda else self._run_eager)(x, lengths)
+
+    def _run_eager(self, x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         t = x.shape[-1]
-
-        def mask_at(scale: int) -> Optional[torch.Tensor]:
-            if lengths is None:
-                return None
-            steps = torch.arange(t * scale, device=x.device)
-            return (steps[None, :] < (lengths * scale)[:, None]).to(x.dtype)[:, None, :]
-
+        mask_at = lambda scale: length_mask(lengths, t * scale, scale, x.dtype)
         mask = mask_at(1)
         if mask is not None:
             x = x * mask
-        x = _mask(self.input_conv(x), mask)
+        x = apply_mask(self.input_conv(x), mask)
         scale = 1
         for i, s in enumerate(cfg.upsample_scales):
             scale *= s
             mask = mask_at(scale)
             up = self.upsamples[i][1]
-            x = _mask(up(F.leaky_relu(x, cfg.negative_slope)), mask)
+            x = apply_mask(up(F.leaky_relu(x, cfg.negative_slope)), mask)
             total = None
             for block in self.blocks[i * self.n_blocks : (i + 1) * self.n_blocks]:
                 y = block.masked(x, mask)
                 total = y if total is None else total.add_(y)
             x = total.div_(self.n_blocks)
         x = self.output_conv[1](F.leaky_relu(x, OUTPUT_SLOPE))
-        return _mask(torch.tanh_(x), mask)
+        return apply_mask(torch.tanh_(x), mask)
+
+    def _run_fused(self, x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """``_run_eager`` with each junction between two convolutions one
+        ``junction`` (kernels/hifigan.py), which adds the convolution's bias:
+        the input's mask, and the output convolution, tanh and mask, stay
+        PyTorch's."""
+        cfg, slope, t = self.cfg, self.cfg.negative_slope, x.shape[-1]
+        mask = length_mask(lengths, t, 1, x.dtype)
+        if mask is not None:
+            x = x * mask
+        a = junction(J1, _unbiased(self.input_conv, x), self.input_conv.bias, lengths, 1, slope)
+        scale, n = 1, len(cfg.upsample_scales)
+        for i, s in enumerate(cfg.upsample_scales):
+            scale *= s
+            up = self.upsamples[i][1]
+            x, a = junction(J0, _unbiased(up, a), up.bias, lengths, scale, slope)
+            next_slope = OUTPUT_SLOPE if i == n - 1 else slope
+            total = None
+            for j, block in enumerate(self.blocks[i * self.n_blocks : (i + 1) * self.n_blocks]):
+                total = block.fused(x, a, lengths, scale, total, j, self.n_blocks, next_slope)
+            a = total
+        x = self.output_conv[1](a)
+        return apply_mask(torch.tanh_(x), length_mask(lengths, t * scale, scale, x.dtype))

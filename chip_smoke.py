@@ -8,8 +8,9 @@ Run from the root of a checkout:
 Phases, in order; any failure exits non-zero and prints no result line:
   1. the card: require CUDA, print nvidia-smi's name and power limit, turn
      TF32 off for the parity phases;
-  2. the build: compile csrc/griffin_lim.cu with nvcc for sm_90a, and hold
-     the constants it exports against the Python model's;
+  2. the build: compile csrc/griffin_lim.cu and csrc/hifigan_junction.cu
+     with nvcc for sm_90a, and hold the constants they export against the
+     Python models';
   3. the fused Griffin-Lim kernel: its two basis images against the Python
      model of the operand layout, bit for bit; then against its plain
      PyTorch version on the card, at the main path's shape (one utterance,
@@ -33,8 +34,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
   5b. the HiFi-GAN generator at its published widths after the same model,
      seeded weights: convert_grid of 4 x 4 mixed lengths against the plain
      model and the plain generator (vc_bench/reference/hifigan.py) pair by pair,
-     with TF32 off (held) and on (printed); the generator's time at 128
-     rows x 480 frames and a convert_grid call of 8 x 16;
+     with TF32 off (held) and on (printed); the sha256 of the served wavs of
+     a convert_grid call of 8 x 16 and of a one-shot conversion, with TF32
+     convolutions, and the junction kernel's launches in each of the two
+     calls (one a junction); the generator's time at 128 rows x 480 frames
+     and a convert_grid call of 8 x 16; the junction kernel
+     (csrc/hifigan_junction.cu) alone at that call's stage-3 and stage-4
+     shapes, J1 and J2 at both and J0 and J3's three blocks at stage 4,
+     against its plain version bit for bit, its time beside its bound and
+     the plain version's;
   6. the kernel's times at both shapes, each beside the card's name and
      power limit;
   7. training at the same width (batch 128 x 128 frames x 512 mels): (a)
@@ -136,6 +144,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import pickle
@@ -187,6 +196,7 @@ from adaptive_voice_conversion_tpu_torch.dsp.vocoder import (
 )
 from adaptive_voice_conversion_tpu_torch.infer.inferencer import Inferencer, utt_make_frames
 from adaptive_voice_conversion_tpu_torch.kernels import griffin_lim as gl
+from adaptive_voice_conversion_tpu_torch.kernels import hifigan as hj
 from adaptive_voice_conversion_tpu_torch.kernels._build import build
 from adaptive_voice_conversion_tpu_torch.models.ae import AE, count_params
 from adaptive_voice_conversion_tpu_torch.models.hifigan import Generator
@@ -313,14 +323,17 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    built = build("griffin_lim")
-    log(f"[build] {built.path.name} in {built.seconds:.2f} s")
-    worst = [ln.strip() for ln in built.log.splitlines() if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
-    regs = sorted({int(ln.split("Used ")[1].split(" registers")[0]) for ln in built.log.splitlines() if "Used " in ln and " registers" in ln})
-    log(f"[build] ptxas: {sum('Used ' in ln for ln in built.log.splitlines())} kernels, "
-        f"registers per thread {regs}, kernels that spill: {len(worst)}")
-    for line in worst:
-        log(f"[build] {line}")
+    for name in ("griffin_lim", "hifigan_junction"):
+        built = build(name)
+        log(f"[build] {built.path.name} in {built.seconds:.2f} s")
+        worst = [ln.strip() for ln in built.log.splitlines() if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+        regs = sorted({int(ln.split("Used ")[1].split(" registers")[0]) for ln in built.log.splitlines() if "Used " in ln and " registers" in ln})
+        log(f"[build] ptxas: {sum('Used ' in ln for ln in built.log.splitlines())} kernels, "
+            f"registers per thread {regs}, kernels that spill: {len(worst)}")
+        for line in worst:
+            log(f"[build] {line}")
+    flags = (hj.RES, hj.ACC, hj.SCALE, hj.STORE_V, hj.STORE_A)
+    check(hj.kernel_flags() == flags, f"hj_flags {hj.kernel_flags()} != kernels/hifigan.py's {flags}")
     # the constants the Python models repeat are the file's own
     out = (ctypes.c_int * 6)()
     gl._gl_lib().gl_constants(out)
@@ -1062,6 +1075,18 @@ def phase_hifigan(card: str) -> dict:
         f"||w - w_ref|| / ||w_ref||: TF32 off max {max(gaps[False]):.3e} mean {np.mean(gaps[False]):.3e} "
         f"(tol {TOL_HIFIGAN_F32}); TF32 on max {max(gaps[True]):.3e} mean {np.mean(gaps[True]):.3e}")
 
+    # the served wavs at the cell's precision (cuDNN's TF32 convolutions, f32
+    # matmuls), hashed: equal hashes on two commits are equal wavs; and the
+    # junction kernel's launches on each path, counted from 0 around its call
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    hashes, launches = served_wav_hashes(inf, srcs, tars)
+    for path, n in launches.items():
+        check(n == gen.junctions, f"junction launches in a {path} call {n} != the generator's "
+              f"{gen.junctions} junctions")
+    log(f"[hifigan] served wavs, TF32 convolutions, sha256: convert_grid 8 x 16 (trimmed) "
+        f"{hashes['grid']}, one-shot {hashes['oneshot']}; junction launches a call: convert_grid "
+        f"{launches['grid']}, one-shot {launches['oneshot']}, of {gen.junctions} junctions")
+
     # the generator alone at the benchmark's largest call, TF32 on
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     b, t = 128, 480
@@ -1077,7 +1102,95 @@ def phase_hifigan(card: str) -> dict:
         f"unmasked {plain_ms:.2f} ms (CUDA events, mean of 3); peak {peak / 1e9:.2f} GB; "
         f"convert_grid 8 x 16 of the same mels, trim=False: {call_ms:.1f} ms host clock ({card})")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    return {"gap_tf32_off": max(gaps[False]), "gap_tf32_on": max(gaps[True]), "masked_ms": masked_ms}
+    del inf, gen, mel
+    torch.cuda.empty_cache()
+    return {"gap_tf32_off": max(gaps[False]), "gap_tf32_on": max(gaps[True]), "masked_ms": masked_ms,
+            "hashes": hashes, "launches": launches, "junction": junction_times(card)}
+
+
+def served_wav_hashes(inf, srcs, tars) -> tuple:
+    """sha256 (16 hex digits) of the served wavs of a convert_grid call of
+    2 x the sources by 4 x the targets (8 x 16 in phase 5b), trimmed, and of
+    a one-shot conversion of the first source to the second target; and the
+    junction kernel's launches in each of the two calls alone."""
+    def digest(wavs) -> str:
+        h = hashlib.sha256()
+        for w in wavs:
+            h.update(str(w.shape).encode() + np.ascontiguousarray(w).tobytes())
+        return h.hexdigest()[:16]
+
+    hashes, launches = {}, {}
+    calls = {"grid": lambda: inf.convert_grid(srcs * 2, tars * 4, trim=True, len_bucket=32),
+             "oneshot": lambda: [inf.inference_one_utterance(srcs[0], tars[1])[0]]}
+    for path, call in calls.items():
+        hj.junction.launches = 0
+        hashes[path] = digest(call())
+        launches[path] = hj.junction.launches
+    return hashes, launches
+
+
+# the benchmark's HiFi-GAN call: 128 rows padded to 480 frames, and the
+# two last stages of the generator there (channels, samples a frame)
+JUNCTION_ROWS, JUNCTION_FRAMES = 128, 480
+JUNCTION_STAGES = {"stage 3": (64, 100), "stage 4": (32, 300)}
+# the residual blocks a stage's mean runs over (J3)
+JUNCTION_BLOCKS = 3
+
+
+def junction_times(card: str) -> dict:
+    """The junction kernel alone at the benchmark call's stage-3 and stage-4
+    shapes, masked at lengths spread over 120-480 frames, with the
+    convolution's bias: J1 and J2 at both, and at stage 4 also J0 and J3's
+    three blocks in turn (the first, the middle, and the last with the mean
+    and the next LeakyReLU), each held against its plain version bit for
+    bit, then its time (CUDA events, mean of 20) beside its bound (the bytes
+    its launches move over 3.35 TB/s) and the plain version's time (mean of
+    5). Returns the stage-4 J2 entry."""
+    dev = torch.device("cuda")
+    lengths = torch.tensor(np.linspace(120, JUNCTION_FRAMES, JUNCTION_ROWS).round().astype(np.int64),
+                           device=dev)
+    bits = lambda t: t.view(torch.int32)
+    out = {}
+    for stage, (ch, scale) in JUNCTION_STAGES.items():
+        shape = (JUNCTION_ROWS, ch, JUNCTION_FRAMES * scale)
+        g = torch.Generator(device=dev).manual_seed(SEED + 53)
+        c, x, c2 = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        bias = torch.randn(ch, generator=g, device=dev)
+        # block j of J3 reads the convolution's output cs[j] and the residual
+        # xs[j]; the sum lives in cs[0]'s buffer, which no block reads besides
+        cs, xs = (c, c2, x), (x, x, c2)
+
+        def run(fn, mode, clone):
+            take = (lambda t: t.clone()) if clone else (lambda t: t)
+            if mode != hj.J3:
+                kw = {"x": x} if mode == hj.J2 else {}
+                r = fn(mode, take(c), bias, lengths, scale, 0.1, **kw)
+                return r if isinstance(r, tuple) else (r,)
+            total = None
+            for j in range(JUNCTION_BLOCKS):
+                total = fn(mode, take(cs[j]), bias, lengths, scale, 0.1, x=xs[j], total=total, block=j,
+                           n_blocks=JUNCTION_BLOCKS)
+            return (total,)
+
+        modes = (hj.J1, hj.J2) if stage != "stage 4" else (hj.J0, hj.J1, hj.J2, hj.J3)
+        for mode in modes:
+            got, want = run(hj.junction, mode, True), run(hj.junction_plain, mode, True)
+            check(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+                  f"junction {mode} at {stage} {shape} is not its plain version bit for bit")
+            del got, want
+            with torch.no_grad():
+                ms = cuda_ms(lambda: run(hj.junction, mode, False), reps=20)
+                plain_ms = cuda_ms(lambda: run(hj.junction_plain, mode, False), reps=5)
+            blocks = range(JUNCTION_BLOCKS) if mode == hj.J3 else (0,)
+            moved = sum(hj.junction_bytes(mode, shape, j, JUNCTION_BLOCKS) for j in blocks)
+            bound_ms = moved / PEAK_BYTES * 1e3
+            out[(stage, mode)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+            what = f"{mode} (its {JUNCTION_BLOCKS} blocks in turn)" if mode == hj.J3 else mode
+            log(f"[time] junction {what}, {stage} {shape} f32, with bias, masked: {ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s; {bound_ms / ms:.1%} of it), plain "
+                f"{plain_ms:.3f} ms; equal to the plain version bit for bit ({card})")
+        del c, x, c2, cs, xs
+    return out[("stage 4", hj.J2)]
 
 
 # ---------------------------------------------------------------------------
@@ -3137,7 +3250,7 @@ def main() -> None:
     kern = phase_kernel()
     main_path = phase_main_path(card)
     serving = phase_serving(card)
-    phase_hifigan(card)
+    hifigan = phase_hifigan(card)
     times = phase_kernel_times(card)
     training = phase_training(card)
     phase_tensor_parallel(card)
@@ -3166,6 +3279,20 @@ def main() -> None:
         "bound_ms": times["main"]["bound_ms"],
         "bound_by": times["main"]["bound_by"],
         "library_ms": times["main"]["library_ms"],
+    }, {
+        "name": "junction",
+        "route": "cuda",
+        "source": "adaptive_voice_conversion_tpu_torch/csrc/hifigan_junction.cu",
+        "replaces": None,
+        "launches": hifigan["launches"]["grid"],
+        "launches_by_path": {
+            "convert_grid 8 x 16 with the HiFi-GAN generator (a call)": hifigan["launches"]["grid"],
+            "one-shot conversion with the HiFi-GAN generator (a call)": hifigan["launches"]["oneshot"],
+        },
+        "ms": hifigan["junction"]["ms"],
+        "plain_ms": hifigan["junction"]["plain_ms"],
+        "bound_ms": hifigan["junction"]["bound_ms"],
+        "bound_by": "bytes",
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

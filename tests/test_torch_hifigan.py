@@ -258,13 +258,13 @@ def test_the_counters_are_silent_without_a_profiler_and_summed_with_one(served, 
     with profile(activities=[ProfilerActivity.CPU]):
         served = [inf.convert_grid(srcs, tars, len_bucket=16), inf.convert_grid(srcs, tars)]
     names = [n for n, _, _ in log.counts]
-    assert names == ["voc.computed_samples", "voc.samples"] * 2
+    assert names == ["voc.computed_samples", "voc.samples", "voc.junctions", "voc.fused_junctions"] * 2
     hop = SIGNAL["hop_length"]
     # sources pad to 32 (16) frames; their decoder lengths are 24 and 16
     valid = 3 * (24 + 16) * hop
     assert profiling.counter_total("voc.samples", 0, 2**63) == 2 * valid
     assert profiling.counter_total("voc.computed_samples", 0, 2**63) == 6 * (32 + 24) * hop
-    t_mid = log.counts[2][1]
+    t_mid = log.counts[4][1]
     assert profiling.counter_total("voc.samples", 0, t_mid - 1) == valid
     for wavs, cut in zip(whole, served):  # every pair served, trimmed
         assert len(cut) == len(wavs) == 6
@@ -288,7 +288,8 @@ def test_the_generator_path_emits_its_spans_in_order_and_flat(served, monkeypatc
     assert [n for n, _, _ in log.spans] == (
         ["infer.assemble", "infer.assemble", "infer.model", "infer.generate"] + trim
         + ["infer.assemble", "infer.model", "infer.generate"] + trim + ["infer.to_host"])
-    assert [n for n, _, _ in counts.counts] == ["voc.computed_samples", "voc.samples"] * 2
+    assert [n for n, _, _ in counts.counts] == [
+        "voc.computed_samples", "voc.samples", "voc.junctions", "voc.fused_junctions"] * 2
     for a, b in zip(plain[0] + plain[1:], traced[0] + traced[1:]):  # 4 trimmed pairs, 1 one-shot
         np.testing.assert_array_equal(a, b)
     for (_, _, end), (_, start, _) in zip(log.spans, log.spans[1:]):
