@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Optional, Sequence
 
 import yaml
 
@@ -130,6 +130,51 @@ VOCODER_KINDS = ("griffin_lim", "hifigan")
 
 
 @dataclass(frozen=True)
+class VocoderTrainConfig:
+    """The ``vocoder_train`` section: HiFi-GAN V1's training job
+    (train/vocoder.py), jik876/hifi-gan's ``config_v1.json`` and ``train.py``
+    at 24 kHz and hop 300, as ParallelWaveGAN's VCTK recipe runs it.
+
+    The multi-period discriminator has one sub-discriminator per period,
+    ``Conv2d`` over (samples / period, period) with kernel
+    (``mpd_kernel_size``, 1), the channels and strides listed, then
+    ``conv_post`` (``post_kernel_size``, 1) to one channel. The multi-scale
+    discriminator has ``msd_scales`` sub-discriminators, each on the wav
+    average-pooled once more than the last (``AvgPool1d(4, 2, padding=2)``),
+    with the ``Conv1d`` channels, kernels, strides and groups listed (padding
+    (k - 1) // 2), then ``conv_post``; its first sub-discriminator takes
+    spectral norm where ``msd_spectral_norm_first``, every other convolution
+    weight norm. Losses are least squares, plus ``lambda_fm`` x feature
+    matching and ``lambda_mel`` x the L1 of the log mels. Each network has
+    its own AdamW (decoupled weight decay, no clipping), its lr times
+    ``lr_decay`` once an epoch. A step takes ``batch_size`` segments of
+    ``segment_samples`` samples at frame-aligned starts."""
+
+    batch_size: int = 16
+    segment_samples: int = 8400
+    mpd_periods: Sequence[int] = (2, 3, 5, 7, 11)
+    mpd_channels: Sequence[int] = (32, 128, 512, 1024, 1024)
+    mpd_strides: Sequence[int] = (3, 3, 3, 3, 1)
+    mpd_kernel_size: int = 5
+    msd_scales: int = 3
+    msd_channels: Sequence[int] = (128, 128, 256, 512, 1024, 1024, 1024)
+    msd_kernel_sizes: Sequence[int] = (15, 41, 41, 41, 41, 41, 5)
+    msd_strides: Sequence[int] = (1, 2, 2, 4, 4, 1, 1)
+    msd_groups: Sequence[int] = (1, 4, 16, 16, 16, 16, 1)
+    msd_spectral_norm_first: bool = True
+    post_kernel_size: int = 3
+    negative_slope: float = 0.1
+    lambda_adv: float = 1.0
+    lambda_fm: float = 2.0
+    lambda_mel: float = 45.0
+    lr: float = 2e-4
+    betas: Sequence[float] = (0.8, 0.99)
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    lr_decay: float = 0.999
+
+
+@dataclass(frozen=True)
 class AEConfig:
     speaker_encoder: SpeakerEncoderConfig = field(default_factory=SpeakerEncoderConfig)
     content_encoder: ContentEncoderConfig = field(default_factory=ContentEncoderConfig)
@@ -145,6 +190,8 @@ class TrainConfig:
     annealing_iters: int = 20000
     signal: SignalConfig = field(default_factory=SignalConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+    # the vocoder's training job; None where the config has no such section
+    vocoder_train: Optional[VocoderTrainConfig] = None
     # training-side knobs, every one read by train/ and data/:
     # compute_dtype, opt_state_dtype and opt_fused by the step and the
     # optimiser; data_dtype, input_mode, device_data_budget_bytes,
@@ -224,6 +271,21 @@ def _parse_vocoder(raw: dict, signal: SignalConfig) -> VocoderConfig:
     return voc
 
 
+def _parse_vocoder_train(raw: Optional[dict], signal: SignalConfig) -> Optional[VocoderTrainConfig]:
+    """The ``vocoder_train`` section; absent, None."""
+    if raw is None:
+        return None
+    vt = VocoderTrainConfig(**_filter_kwargs(VocoderTrainConfig, raw))
+    if vt.segment_samples % signal.hop_length:
+        raise ValueError(f"config vocoder_train.segment_samples={vt.segment_samples} is not a "
+                         f"multiple of the hop {signal.hop_length}")
+    if len(vt.mpd_strides) != len(vt.mpd_channels):
+        raise ValueError("config vocoder_train: one mpd stride per mpd channel count")
+    if not len(vt.msd_channels) == len(vt.msd_kernel_sizes) == len(vt.msd_strides) == len(vt.msd_groups):
+        raise ValueError("config vocoder_train: one msd kernel size, stride and group count per channel count")
+    return vt
+
+
 def config_from_dict(raw: dict) -> TrainConfig:
     """Build a TrainConfig from a reference-format config dict."""
     signal = SignalConfig(**_filter_kwargs(SignalConfig, raw.get("signal", {})))
@@ -248,6 +310,7 @@ def config_from_dict(raw: dict) -> TrainConfig:
         annealing_iters=int(raw.get("annealing_iters", 20000)),
         signal=signal,
         vocoder=_parse_vocoder(raw.get("vocoder", {}), signal),
+        vocoder_train=_parse_vocoder_train(raw.get("vocoder_train"), signal),
         compute_dtype=str(raw.get("compute_dtype", "float32")),
         data_dtype=str(raw.get("data_dtype", "float32")),
         input_mode=str(raw.get("input_mode", "auto")),
@@ -293,6 +356,8 @@ def config_to_dict(cfg: TrainConfig) -> dict:
     }
     if cfg.vocoder.kind != "griffin_lim":
         out["vocoder"] = asdict(cfg.vocoder)
+    if cfg.vocoder_train is not None:
+        out["vocoder_train"] = asdict(cfg.vocoder_train)
     return out
 
 

@@ -35,13 +35,15 @@ with one all-gather. Each rank's link carries ``1 / n_data`` of the bytes.
 
 from __future__ import annotations
 
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, List, NamedTuple, Optional, Tuple
+from typing import Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.mesh import Mesh, all_gather_rows, shard_rows_for_process
+from ..utils.profiling import span
 from .dataset import SegmentDataset
 
 
@@ -80,6 +82,38 @@ class DeviceChunk(NamedTuple):
         if self.mesh is None:
             return self
         return self._replace(packed=all_gather_rows(self.mesh, self.packed), mesh=None)
+
+
+def next_chunk(pending: "Future[DeviceChunk]") -> DeviceChunk:
+    """The chunk whose ``put_chunk`` a thread is running: waits for it and
+    acquires it (``DeviceChunk.acquire``), inside the span
+    ``train.chunk_wait`` (utils/profiling.py), the steps' wait for the
+    stream at a chunk switch."""
+    with span("train.chunk_wait"):
+        return pending.result().acquire()
+
+
+def stream_visits(streamer: "ChunkedDeviceStreamer", visits: Iterable[Visit]) -> Iterator[Tuple[Visit, DeviceChunk]]:
+    """Each visit with its chunk on the device, acquired on the caller's
+    thread (with a mesh, ``acquire`` is a collective). Before a visit is
+    handed over, the next visit's chunk, where it differs, starts crossing on
+    a thread of its own (``put_chunk``), so the copy overlaps the visit's
+    steps; the switch waits for it (``next_chunk``). Closing the generator
+    waits for a copy in flight."""
+    visits = iter(visits)
+    v = next(visits, None)
+    if v is None:
+        return
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        chunk = streamer.put_chunk(v.chunk_id).acquire()
+        while v is not None:
+            nxt = next(visits, None)
+            pending = (pool.submit(streamer.put_chunk, nxt.chunk_id)
+                       if nxt is not None and nxt.chunk_id != v.chunk_id else None)
+            yield v, chunk
+            if pending is not None:
+                chunk = next_chunk(pending)
+            v = nxt
 
 
 class ChunkedDeviceStreamer:

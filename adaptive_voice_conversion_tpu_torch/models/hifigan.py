@@ -21,7 +21,15 @@ On the CPU the masks, LeakyReLUs and sums between the convolutions are
 PyTorch's elementwise ops. On a CUDA tensor each junction between two
 convolutions is one launch of the kernel in kernels/hifigan.py, which also
 adds the convolution's bias (``_run_fused``), with the same arithmetic, so
-the wavs are the same bit for bit.
+the wavs are the same bit for bit. The kernel has no backward: where autograd
+records (the input or a weight needs a gradient), the generator runs the
+eager ops on the card too, its differentiable path.
+
+Training (train/vocoder.py) keeps every convolution weight-normed, as
+ParallelWaveGAN and jik876/hifi-gan train it: ``apply_weight_norm`` holds
+each weight as ``weight_g`` / ``weight_v`` (``torch.nn.utils.weight_norm``,
+``dim=0``), so a training checkpoint's generator loads
+through models/weights.py ``load_generator``, which folds the pairs.
 
 Its plain reference, which the tests hold it against, is the benchmark's
 ``vc_bench/reference/hifigan.py``.
@@ -30,6 +38,7 @@ Its plain reference, which the tests hold it against, is the benchmark's
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional
 
 import torch
@@ -43,6 +52,25 @@ from ..utils.profiling import count
 # the slope of the LeakyReLU before the output convolution (PyTorch's
 # default, as ParallelWaveGAN and jik876/hifi-gan have it)
 OUTPUT_SLOPE = 0.01
+
+
+def weight_norm(module: nn.Module) -> nn.Module:
+    """``torch.nn.utils.weight_norm(module)`` (``dim=0``). Its successor,
+    ``torch.nn.utils.parametrizations.weight_norm``, stores the pair under
+    other keys, which ParallelWaveGAN's checkpoints and ``load_generator``
+    do not read, so the deprecation warning is silenced here."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return nn.utils.weight_norm(module)
+
+
+def apply_weight_norm(root: nn.Module) -> nn.Module:
+    """``weight_norm`` on every convolution under ``root`` (ParallelWaveGAN's
+    ``apply_weight_norm``)."""
+    for m in list(root.modules()):
+        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d)) and "weight" in m._parameters:
+            weight_norm(m)
+    return root
 
 
 def _same(k: int, d: int = 1) -> int:
@@ -149,9 +177,18 @@ class Generator(nn.Module):
         return wav
 
     def _run(self, x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        return (self._run_fused if x.is_cuda else self._run_eager)(x, lengths)
+        fused = x.is_cuda and not self._records_grad(x)
+        return (self._run_fused if fused else self._run_eager)(x, lengths)
+
+    def _records_grad(self, x: torch.Tensor) -> bool:
+        """Whether autograd records this call: grad mode on, and the input or
+        a parameter needs a gradient."""
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
 
     def _run_eager(self, x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """The forward in PyTorch ops: the CPU's path, and the differentiable
+        one on the card."""
         cfg = self.cfg
         t = x.shape[-1]
         mask_at = lambda scale: length_mask(lengths, t * scale, scale, x.dtype)

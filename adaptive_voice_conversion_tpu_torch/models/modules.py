@@ -83,7 +83,7 @@ def _power_iteration(wm: torch.Tensor, u: torch.Tensor, tp=None, phase: str = "f
     return v, u2
 
 
-def spectral_normalize(w: torch.Tensor, u: torch.Tensor, tp=None) -> torch.Tensor:
+def spectral_normalize(w: torch.Tensor, u: torch.Tensor, tp=None, store=None) -> torch.Tensor:
     """``w / sigma`` for a weight (O, ...) and its stored vector ``u`` (O,):
     one power iteration on the detached (O, -1) matrix, then
     ``sigma = u'^T W v`` with the gradient through ``W``, so d(w/sigma)/dw
@@ -91,10 +91,19 @@ def spectral_normalize(w: torch.Tensor, u: torch.Tensor, tp=None) -> torch.Tenso
     the model axis) ``w`` is this rank's shard and ``sigma`` is the whole
     matrix's: the ranks' partial dot products go through ``reduce``, and
     since every rank divides its own shard by it, ``sigma`` then goes
-    through ``copy``, whose backward sums its gradient over the ranks."""
+    through ``copy``, whose backward sums its gradient over the ranks.
+
+    ``store``, a pair of buffers (u, v), takes the iteration's ``u'`` and
+    ``v``: the schedule of ``torch.nn.utils.spectral_norm`` in training mode,
+    which advances ``u`` in every forward (models/hifigan_disc.py). The
+    decoder passes none, and advances ``u`` once a step instead
+    (``spectral_norm_update``)."""
     wm = _sn_matrix(w)
     with torch.no_grad():
         v, u2 = _power_iteration(wm, u, tp)
+        if store is not None:
+            store[0].copy_(u2)
+            store[1].copy_(v)
     sigma = torch.dot(u2, wm @ v)
     if tp is not None:
         sigma = tp.axis.copy(tp.axis.reduce(sigma))

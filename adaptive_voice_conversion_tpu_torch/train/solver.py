@@ -29,11 +29,11 @@
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import pickle
 import time
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -44,6 +44,7 @@ from ..core.config import TrainConfig, save_config
 from ..core.device import DeviceLike, resolve_device
 from ..core.mesh import Mesh, all_reduce_max, replicate_pytree
 from ..data.chunked import ChunkedDeviceStreamer
+from ..data.chunked import stream_visits
 from ..data.dataset import SegmentDataset
 from ..data.device_sampler import DeviceResidentDataset
 from ..data.sharded import ShardedDeviceDataset
@@ -475,24 +476,18 @@ class Solver:
 
     def _train_chunked(self, n_iterations: int, log_every_print: bool) -> dict:
         """Corpora over the device budget: the chunk schedule of
-        data/chunked.py, the next chunk's transfer started on a thread before
-        the current chunk's steps are queued, so the two overlap."""
+        data/chunked.py through ``stream_visits``, which starts the next
+        chunk's transfer on a thread before the current chunk's steps are
+        queued, so the two overlap."""
         self._resolve_chunk_repeats()
         K = self.config.inner_steps
-        visits = list(self.chunked.schedule(self.iteration, n_iterations))
         t_start = time.time()
         end = self.iteration + n_iterations
         steps_done = 0
         last = None
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            # acquire() on this thread: with a mesh it is a collective
-            chunk = self.chunked.put_chunk(visits[0].chunk_id).acquire() if visits else None
-            for vi, v in enumerate(visits):
-                nxt = visits[vi + 1] if vi + 1 < len(visits) else None
-                if nxt is not None and nxt.chunk_id != v.chunk_id:
-                    next_chunk = pool.submit(self.chunked.put_chunk, nxt.chunk_id)
-                else:
-                    next_chunk = None
+        visits = stream_visits(self.chunked, self.chunked.schedule(self.iteration, n_iterations))
+        with contextlib.closing(visits):
+            for v, chunk in visits:
                 packed, starts, n_starts = chunk[:3]
                 it, endv = v.it0, v.it0 + v.k
                 while it < endv:
@@ -503,8 +498,6 @@ class Solver:
                     last = self._after_multi_step(
                         ms, it, k, end, steps_done, t_start, log_every_print
                     ) or last
-                if next_chunk is not None:
-                    chunk = next_chunk.result().acquire()
         self._finish(end)
         return last or {}
 

@@ -31,6 +31,20 @@ host event at any moment names one layer. The names:
                     seed, the copy of the step's scalars, the replay, the
                     copy of its metrics (train/step.py ``StepGraph``); a
                     replayed step emits no other span
+    train.chunk_wait  the chunked mode's wait, at a chunk switch, for the
+                    next chunk's copy to the device (data/chunked.py
+                    ``next_chunk``)
+    vtrain.sample   a vocoder training step's draw (train/vocoder.py): the
+                    seed, the windows' gather, the featurizer, the
+                    normalisation
+    vtrain.disc     the generator's forward and the discriminators' update,
+                    through its optimiser step
+    vtrain.gen      the generator's update: the loss mels, the
+                    discriminators again, the losses, backward, the
+                    optimiser step; a step replayed from its CUDA graphs
+                    (train/vocoder.py ``GANGraphs``) emits these two alone,
+                    each around the host's launch of its graph (the draw is
+                    in the first)
 
 A counter, like a span, records only while a torch profiler records, and
 otherwise costs one flag read. Each ``count(name, value)`` appends ``(name,
@@ -43,6 +57,13 @@ The names:
                           hop x the sum of the rows' frame lengths
     voc.computed_samples  the samples it computed, padding included:
                           hop x rows x padded frames
+    voc.junctions         the junctions between two of its convolutions in
+                          a call
+    voc.fused_junctions   the junction kernel's launches in a call
+    vtrain.segments       a vocoder training step's segments (its batch)
+    vtrain.disc_samples   the samples its sub-discriminators take in a step,
+                          over its four passes (the pooled scales at their
+                          own lengths, the period ones padded)
 """
 
 from __future__ import annotations

@@ -129,7 +129,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      moment equal bit for bit (cuDNN deterministic) or within 1e-4 relative
      (cuDNN's default algorithms); a run resumed from the state after the
      first graphed call against the continuous run, alike; each mode's ms
-     a step.
+     a step;
+ 14. HiFi-GAN V1 training (train/vocoder.py) at the published widths, the
+     generator against the multi-period and multi-scale discriminators,
+     batch 16 x 8400 samples on 48 seeded voiced utterances: (a) 3 steps of
+     the program against the plain reference (vc_bench/reference/
+     hifigan_train.py) from the same weights and draws, with TF32 off
+     (held) and on (printed): the loss terms, the first gradients, the
+     change after 3 steps; (b) the step's ms replayed from its two CUDA
+     graphs, by span (vtrain.disc, vtrain.gen), and its launches, TF32 on;
+     (c) the served
+     generator's wavs (no gradient, the junction kernel), sha256, to hold
+     against another commit's.
 The last three lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 
@@ -206,6 +217,7 @@ from adaptive_voice_conversion_tpu_torch.models.weights import (
     load_checkpoint,
     save_checkpoint,
 )
+from adaptive_voice_conversion_tpu_torch.train import vocoder as tv
 from adaptive_voice_conversion_tpu_torch.train.checkpoint import CheckpointManager
 from adaptive_voice_conversion_tpu_torch.train.optim import (
     kl_lambda,
@@ -217,7 +229,10 @@ from adaptive_voice_conversion_tpu_torch.train.step import (
     make_train_step,
     step_seed,
 )
+from adaptive_voice_conversion_tpu_torch.utils import profiling
+from vc_bench.drivers import train_hifigan
 from vc_bench.reference import hifigan as ref_hifigan
+from vc_bench.reference import hifigan_train as ref_train
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -3229,6 +3244,106 @@ def phase_train_graph(card: str) -> None:
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
 
 
+# phase 14: the training job's utterances, and its bounds with TF32 off
+VOC_TRAIN_UTTS, VOC_TRAIN_SECONDS = 48, (1.0, 3.0)
+TOL_VOC_TRAIN = {"loss_gap": 1e-4, "grad_gap": 1e-2, "grad_dist": 1e-3, "change_gap": 1e-2}
+
+
+def generator_hashes() -> dict:
+    """sha256 (16 hex digits) of the published generator's wavs, seeded
+    weights, TF32 convolutions, no gradient (the junction kernel's path):
+    8 rows of 120-480 frames masked, and the same mels unmasked."""
+    cfg = config_from_dict({"vocoder": {"kind": "hifigan"}})
+    voc = config_to_dict(cfg)["vocoder"]
+    dev = torch.device("cuda")
+    gen = Generator(cfg.vocoder).to(dev)
+    gen.load_state_dict(ref_hifigan.make_params(voc, SEED + 140, dev), strict=True)
+    gen.eval()
+    mel = torch.randn(8, 480, 512, generator=torch.Generator(device=dev).manual_seed(SEED + 141), device=dev)
+    lengths = torch.tensor(np.linspace(120, 480, 8).round().astype(np.int64), device=dev)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            wavs = {"masked": gen.generate(mel, lengths), "unmasked": gen.generate(mel)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return {k: hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest()[:16] for k, w in wavs.items()}
+
+
+def phase_train_vocoder(card: str) -> dict:
+    """14: the GAN step against the plain reference, its times, the served
+    generator's hashes."""
+    raw = config_to_dict(config_from_dict({"vocoder": {"kind": "hifigan"}, "vocoder_train": {}}))
+    cfg = config_from_dict(raw)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 142)
+    waves = []
+    for i in range(VOC_TRAIN_UTTS):
+        n = int(rng.uniform(*VOC_TRAIN_SECONDS) * SIG.sr)
+        t = np.arange(n) / SIG.sr
+        f0 = 90 + 170 * rng.random()
+        y = sum(np.sin(2 * np.pi * k * f0 * t * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))) / k for k in range(1, 12))
+        waves.append((0.2 * y / np.abs(y).max() + 0.003 * rng.standard_normal(n)).astype(np.float32))
+    rng = np.random.default_rng(SEED + 143)
+    attr = {"mean": (0.45 + 0.1 * rng.random(512)).astype(np.float32),
+            "std": (0.12 + 0.05 * rng.random(512)).astype(np.float32)}
+    corpus = tv.WaveCorpus(waves, cfg.signal, cfg.vocoder_train.segment_samples, dev, 10**10)
+    gen0 = ref_train.make_gen_params(raw["vocoder"], SEED + 144, dev)
+    disc0 = ref_train.make_disc_params(raw["vocoder_train"], SEED + 145, dev)
+
+    theirs = ref_train.reference_steps(raw, gen0, disc0, corpus.packed, corpus.starts, attr, SEED, 3)
+    gaps = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        gaps[tf32] = ref_train.compare_steps(
+            train_hifigan.program_steps(cfg, *train_hifigan.build(cfg, gen0, disc0, dev), gen0, disc0, corpus,
+                                        attr, SEED, 3), theirs)
+    torch.backends.cudnn.allow_tf32 = False
+    for key, tol in TOL_VOC_TRAIN.items():
+        check(gaps[False][key] <= tol, f"14a GAN steps vs the plain reference, TF32 off: {key} "
+              f"{gaps[False][key]:.3e} > {tol}")
+    log(f"[vtrain] 14a 3 GAN steps vs the plain reference (batch 16 x 8400, {corpus.n_utterances} "
+        f"utterances): TF32 off " + ", ".join(f"{k} {v:.3e}" for k, v in gaps[False].items())
+        + "; TF32 on " + ", ".join(f"{k} {v:.3e}" for k, v in gaps[True].items()))
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        generator, disc, opt_g, opt_d = train_hifigan.build(cfg, gen0, disc0, dev)
+        multi = tv.make_vocoder_train_step(cfg, generator, disc, opt_g, opt_d, attr, 10, 1000)
+        multi(corpus.packed, corpus.starts, SEED, 0)  # cuDNN's plans, AdamW's state
+        multi(corpus.packed, corpus.starts, SEED, 10)  # the capture
+        check(multi.graphs is not None and multi.graphs.graphs is not None,
+              "14b the GAN step was not captured in CUDA graphs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(corpus.packed, corpus.starts, SEED, 20)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 100
+        profiling.SPAN_LOG.spans.clear()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            multi(corpus.packed, corpus.starts, SEED, 30)
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+                       and not getattr(e, "is_user_annotation", False) and not e.name.startswith("## ")) / 10
+        by_span = {}
+        for name, a, b in profiling.SPAN_LOG.spans:
+            by_span[name] = by_span.get(name, 0.0) + (b - a) / 1e6 / 10
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    log(f"[time] vtrain 14b a GAN step, TF32 on, graphed: {step_ms:.1f} ms host clock (a call of 10); "
+        f"under the profiler by span " + ", ".join(f"{k} {v:.1f} ms" for k, v in by_span.items())
+        + f"; {launches:.0f} device operations a step ({card})")
+    hashes = generator_hashes()
+    log(f"[hifigan] 14c the published generator's wavs, no gradient, TF32 convolutions, sha256: "
+        f"masked {hashes['masked']}, unmasked {hashes['unmasked']}")
+    del multi, generator, disc, opt_g, opt_d
+    torch.cuda.empty_cache()
+    return {"gaps": gaps, "step_ms": step_ms, "hashes": hashes}
+
+
 def phase_training(card: str) -> dict:
     cfg = load_config(str(REPO / "examples" / "config.yaml"))
     phase_train_step_parity(cfg)
@@ -3257,6 +3372,7 @@ def main() -> None:
     prep = phase_preprocess(card)
     experiments = phase_experiments(card)
     phase_train_graph(card)
+    phase_train_vocoder(card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "griffin_lim_phases",

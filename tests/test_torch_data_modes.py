@@ -27,7 +27,7 @@ from adaptive_voice_conversion_tpu.data.device_sampler import (
     sample_segments as j_sample_segments,
 )
 from adaptive_voice_conversion_tpu_torch.data import native
-from adaptive_voice_conversion_tpu_torch.data.chunked import ChunkedDeviceStreamer
+from adaptive_voice_conversion_tpu_torch.data.chunked import ChunkedDeviceStreamer, next_chunk, stream_visits
 from adaptive_voice_conversion_tpu_torch.data.dataset import SegmentDataset
 from adaptive_voice_conversion_tpu_torch.data.device_sampler import (
     DeviceResidentDataset,
@@ -43,6 +43,7 @@ from adaptive_voice_conversion_tpu_torch.train.step import (
     make_train_step,
     step_seed,
 )
+from adaptive_voice_conversion_tpu_torch.utils import profiling
 
 from test_torch_solver import one_intra_op_thread, tiny  # noqa: F401
 
@@ -289,6 +290,72 @@ def test_chunk_set_repeats_and_mesh_raises(artifacts):
         assert ours3.R == 63 and ours3.last_h2d_rows == third and part.mesh is mesh
         lo = ours3.R + third * rank
         np.testing.assert_array_equal(part.packed.numpy(), ds.packed[lo : lo + third])
+
+
+def test_next_chunk_waits_for_the_copy_inside_its_span(artifacts, monkeypatch):
+    """``next_chunk`` returns the chunk a thread's ``put_chunk`` made,
+    acquired, and records ``train.chunk_wait`` around the wait only while a
+    profiler records."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+
+    _, ours, _ = chunk_pair(artifacts, "float32", 40, 2, 1)
+    monkeypatch.setattr(profiling, "SPAN_LOG", profiling.SpanLog(cap=100))
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        chunk = next_chunk(pool.submit(ours.put_chunk, 1))
+        assert profiling.SPAN_LOG.spans == []
+        np.testing.assert_array_equal(chunk.packed.numpy(), ours.chunk_view(1))
+        assert int(chunk.n_starts) == ours.n_starts[1]
+        with profile(activities=[ProfilerActivity.CPU]):
+            next_chunk(pool.submit(ours.put_chunk, 0))
+    assert [n for n, _, _ in profiling.SPAN_LOG.spans] == ["train.chunk_wait"]
+
+
+def test_stream_visits_hands_each_visit_its_chunk_and_copies_the_next_ahead(artifacts, monkeypatch):
+    """``stream_visits`` yields every visit of the schedule with its chunk;
+    the first chunk is copied on the caller's thread, each later one that
+    differs on another thread, submitted before the visit before it is
+    handed over, and each is copied once; closing the generator early
+    waits for the copy in flight."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import adaptive_voice_conversion_tpu_torch.data.chunked as chunked_mod
+
+    _, ours, _ = chunk_pair(artifacts, "float32", 40, 2, 1)
+    calls, threads, real = [], [], ours.put_chunk
+
+    class Pool(ThreadPoolExecutor):
+        def submit(self, fn, *args):
+            calls.append(args[0])  # when submitted, on the caller's thread
+            return super().submit(fn, *args)
+
+    def put(chunk_id):
+        if threading.current_thread() is threading.main_thread():
+            calls.append(chunk_id)
+        threads.append(threading.current_thread() is threading.main_thread())
+        return real(chunk_id)
+
+    monkeypatch.setattr(chunked_mod, "ThreadPoolExecutor", Pool)
+    monkeypatch.setattr(ours, "put_chunk", put)
+    visits = list(ours.schedule(0, 4 * ours.epoch_steps))
+    assert len({v.chunk_id for v in visits}) > 1
+    got = []
+    for i, (v, chunk) in enumerate(stream_visits(ours, visits)):
+        changes = sum(a.chunk_id != b.chunk_id for a, b in zip(visits[: i + 1], visits[1 : i + 2]))
+        assert len(calls) == 1 + changes  # the next one's copy is already submitted
+        np.testing.assert_array_equal(chunk.packed.numpy(), ours.chunk_view(v.chunk_id))
+        got.append(v)
+    assert got == visits
+    expect = [visits[0].chunk_id] + [b.chunk_id for a, b in zip(visits, visits[1:]) if a.chunk_id != b.chunk_id]
+    assert calls == expect and threads == [True] + [False] * (len(expect) - 1)
+    calls.clear()
+    switch = next(i for i, (a, b) in enumerate(zip(visits, visits[1:])) if a.chunk_id != b.chunk_id)
+    stream = stream_visits(ours, visits[switch:])
+    next(stream)
+    stream.close()
+    assert len(calls) == 2 and list(stream) == []
 
 
 # -- the multi-step trainer ----------------------------------------------------

@@ -96,10 +96,11 @@ def to_bct(x):
 
 def test_config_loads_field_for_field():
     def port(cfg):
-        # the port's vocoder section, which the JAX schema lacks, reads
-        # Griffin-Lim where the file has none
+        # the port's vocoder sections, which the JAX schema lacks, read
+        # Griffin-Lim and no vocoder training where the file has none
         d = dataclasses.asdict(cfg)
         assert d.pop("vocoder") == dataclasses.asdict(tcfg.VocoderConfig())
+        assert d.pop("vocoder_train") is None
         return d
 
     j, t = (m.load_config(str(REPO / "examples" / "config.yaml")) for m in (jcfg, tcfg))

@@ -32,7 +32,8 @@ from test_torch_masked import N_MELS, SIGNAL, tiny_model_configs
 
 PORT = Path(profiling.__file__).resolve().parents[1]
 NAMES = ("dsp.mel", "dsp.trim", "infer.assemble", "infer.model", "infer.vocode", "infer.generate",
-         "infer.to_host", "train.sample", "train.forward", "train.backward", "train.update", "train.replay")
+         "infer.to_host", "train.sample", "train.forward", "train.backward", "train.update", "train.replay",
+         "train.chunk_wait", "vtrain.sample", "vtrain.disc", "vtrain.gen")
 SEG, BATCH = 16, 4
 
 
@@ -180,14 +181,15 @@ def test_the_paths_emit_their_spans_in_order_flat_and_change_nothing(call, serve
 READERS = {"sample_ms": "train.sample", "forward_ms": "train.forward", "backward_ms": "train.backward",
            "update_ms": "train.update", "mel_ms": "dsp.mel", "trim_ms": "dsp.trim",
            "assemble_ms": "infer.assemble", "model_ms": "infer.model", "vocode_ms": "infer.vocode",
-           "generator_ms": "infer.generate", "wait_ms": "infer.to_host"}
+           "generator_ms": "infer.generate", "wait_ms": "infer.to_host", "chunk_wait_ms": "train.chunk_wait",
+           "disc_ms": "vtrain.disc", "gen_ms": "vtrain.gen"}
 
 
 @pytest.mark.parametrize("stem", list(READERS))
 def test_a_reader_takes_the_mean_per_unit_of_the_spans_inside_the_window(stem, log):
     name = READERS[stem]
     reader = bench_run.load_module(bench_run.metric_file(f"{stem}.cell"))
-    train = name.startswith("train.")
+    train = name.startswith(("train.", "vtrain."))
     units = [{"steps": 10}, {"steps": 10}] if train else [{}, {}, {}, {"failed": True}]
     record = {"units": units, "trace": types.SimpleNamespace(window_ns=(1_000_000, 9_000_000))}
     assert reader.read(record) is None
